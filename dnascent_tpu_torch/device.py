@@ -1,0 +1,37 @@
+"""Placement on one explicit device (the port of ``parallel/compute.py``).
+
+The JAX package places arrays through an optional data-parallel mesh; the
+port runs on one device named by the caller, so placement is a copy to that
+device and row padding is the identity.  Multi-GPU runs are later work.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def resolve(device) -> torch.device:
+    """Validate a device argument; a CUDA device must exist (no silent CPU
+    fallback)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} requested but CUDA is not available")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def pad_rows(n: int) -> int:
+    """Row count a batch is padded to (one device: unchanged, at least 1)."""
+    return max(1, n)
+
+
+def put_rows(x, device) -> torch.Tensor:
+    """Copy a host array to ``device``."""
+    return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+
+# with one device, a batch-row array and one shared by every row (the JAX
+# package's sharded vs replicated placements) are placed alike
+put_rep = put_rows

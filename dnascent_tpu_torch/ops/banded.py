@@ -1,0 +1,295 @@
+"""Adaptive banded event alignment: plain PyTorch twins of kernels A and B
+and the host helpers around them (port of ``dnascent_tpu/ops/banded.py``).
+
+The fill is the static-stdv form the shipping pipeline runs (the banded
+aligner scores against the ONT table with stdv forced to 0.14,
+data_IO.cpp:173): one mu plane, emission ``h_c * (x - mu)^2`` with
+``h_c = -0.5 / sigma^2``, and the log-density constant folded into the
+per-read stay/step scores.  Its arithmetic follows the TPU lean kernel
+(``banded_pallas._kernel_lean``) operation for operation, so the CUDA
+kernel (``csrc/banded_fill.cu``) matches this twin bit for bit; against the
+JAX package's XLA scan, which rounds the emission differently, the contract
+is the one ``tests/test_banded_pallas.py`` states (rights and best_event
+equal, rare trace tie flips, best_score within 0.05).
+
+The chase emits the band-ordered, PAD-gapped 2-bit move stream of
+``banded_pallas.backtrace_moves_pallas``; ``native.decode_moves`` (or
+:func:`decode_moves_host`) turns it into event/k-mer pairs.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+NEG = float("-inf")
+FROM_D, FROM_U, FROM_L = 0, 1, 2
+MOVE_D, MOVE_U, MOVE_L, MOVE_PAD = 0, 1, 2, 3
+LOG_INV_SQRT_2PI = float(np.log(0.3989422804014327))
+CH_ROWS = 4  # chase output rows are a multiple of this (TPU kernel's block)
+
+
+def lean_scalars(n_events: torch.Tensor, n_kmers: torch.Tensor, *,
+                 inv_sigma: float, lp_const: float, epsilon_skip: float,
+                 p_trim: float):
+    """Per-read stay/step log-probabilities with the static emission's
+    log-density constant folded in, plus the per-call scalars.  Shared by the
+    kernel's wrapper and its plain twin so both consume identical inputs.
+    Returns (lp_stay, lp_step, lp_skip, lp_trim, h_c)."""
+    fE = n_events.to(torch.float32)
+    fK = n_kmers.to(torch.float32)
+    p_stay = 1.0 - (1.0 / (fE / fK + 1.0))
+    lpc = torch.tensor(lp_const, dtype=torch.float32, device=fE.device)
+    eps = torch.tensor(epsilon_skip, dtype=torch.float32, device=fE.device)
+    lp_stay = torch.log(p_stay) + lpc
+    lp_step = torch.log1p(-(eps + p_stay)) + lpc
+    lp_skip = float(np.float32(np.log(epsilon_skip)))
+    lp_trim = float(np.float32(np.log(p_trim)))
+    h_c = float(np.float32(-0.5 * inv_sigma * inv_sigma))
+    return lp_stay.contiguous(), lp_step.contiguous(), lp_skip, lp_trim, h_c
+
+
+def n_fill_steps(E: int, K: int) -> int:
+    """Packed 4-band steps of a fill over E events and K k-mers."""
+    return (E + K + 3) // 4
+
+
+def banded_fill_plain(events: torch.Tensor,   # (B, E) f32 scaled events
+                      mu: torch.Tensor,       # (B, K) f32, +inf = undefined
+                      n_events: torch.Tensor,  # (B,) i32
+                      n_kmers: torch.Tensor,   # (B,) i32
+                      *, inv_sigma: float, lp_const: float,
+                      bandwidth: int = 100, epsilon_skip: float = 1e-30,
+                      p_trim: float = 0.01):
+    """Plain twin of kernel A, vectorised over (reads, band cells) with a
+    Python loop over bands.  Returns (trace (S, B, W) u8, rights (S, B) u8,
+    best_event (B,) i32, best_score (B,) f32), S = ceil((E + K) / 4)."""
+    dev = events.device
+    B, E = events.shape
+    K = mu.shape[1]
+    W = bandwidth
+    half = W // 2
+    n_steps = n_fill_steps(E, K)
+    lp_stay, lp_step, lp_skip, lp_trim, h_c = lean_scalars(
+        n_events, n_kmers, inv_sigma=inv_sigma, lp_const=lp_const,
+        epsilon_skip=epsilon_skip, p_trim=p_trim)
+    f32 = dict(dtype=torch.float32, device=dev)
+    neg_col = torch.full((B, 1), NEG, **f32)
+    lp_skip_t = torch.tensor(lp_skip, **f32)
+    lp_trim_t = torch.tensor(lp_trim, **f32)
+    h_c_t = torch.tensor(h_c, **f32)
+    lp_stay = lp_stay[:, None]
+    lp_step = lp_step[:, None]
+    n_ev = n_events.long()[:, None]
+    n_km = n_kmers.long()[:, None]
+    offs = torch.arange(W, device=dev)[None, :]
+    rows = torch.arange(B, device=dev)[:, None]
+
+    def shift_up(p):      # out[o] = p[o+1]
+        return torch.cat([p[:, 1:], neg_col], dim=1)
+
+    def shift_down(p):    # out[o] = p[o-1]
+        return torch.cat([neg_col, p[:, :-1]], dim=1)
+
+    p2 = torch.full((B, W), NEG, **f32)
+    p2[:, half] = 0.0
+    p1 = torch.full((B, W), NEG, **f32)
+    p1[:, half] = lp_trim
+    e0 = torch.full((B, 1), half, dtype=torch.long, device=dev)
+    k0 = torch.full((B, 1), -1 - half, dtype=torch.long, device=dev)
+    rp = torch.zeros((B, 1), dtype=torch.long, device=dev)
+    bs = torch.full((B, 1), NEG, **f32)
+    be = torch.zeros((B, 1), dtype=torch.long, device=dev)
+    trace = torch.empty((n_steps, B, W), dtype=torch.uint8, device=dev)
+    rights = torch.empty((n_steps, B), dtype=torch.uint8, device=dev)
+    for step in range(n_steps):
+        acc = torch.zeros((B, W), dtype=torch.long, device=dev)
+        racc = torch.zeros((B, 1), dtype=torch.long, device=dev)
+        for j in range(4):
+            band = step * 4 + j + 2
+            ll = p1[:, :1]
+            ur = p1[:, W - 1 : W]
+            both_ob = (ll == NEG) & (ur == NEG)
+            right = torch.where(both_ob, torch.full_like(rp, band % 2),
+                                (ll < ur).long())
+            rb = right == 1
+            e0 = e0 + (1 - right)
+            k0 = k0 + right
+            e = e0 - offs
+            k = k0 + offs
+            ev = torch.gather(events, 1, e.clamp(0, E - 1))
+            mk = torch.gather(mu, 1, k.clamp(0, K - 1))
+            t = ev - mk
+            em = h_c_t * (t * t)
+            up = torch.where(rb, shift_up(p1), p1)
+            left = torch.where(rb, p1, shift_down(p1))
+            dd = right + rp
+            diag = torch.where(dd == 0, shift_down(p2),
+                               torch.where(dd == 1, p2, shift_up(p2)))
+            rp = right
+            sd = diag + (lp_step + em)
+            su = up + (lp_stay + em)
+            sl = left + lp_skip_t
+            mdu = torch.maximum(sd, su)
+            from_du = torch.where(mdu == su, FROM_U, FROM_D)
+            mall = torch.maximum(mdu, sl)
+            frm = torch.where(mall == sl, FROM_L, from_du)
+            valid = (e >= 0) & (e < n_ev) & (k >= 0) & (k < n_km)
+            bnd = torch.where(valid, mall, NEG)
+            frm = torch.where(valid, frm, 0)
+            # trim state (event_handling.cpp:255-265)
+            ot = -1 - k0
+            et = e0 - ot
+            trim_ok = (ot >= 0) & (ot < W) & (et >= 0) & (et < n_ev)
+            is_trim = (offs == ot) & trim_ok
+            bnd = torch.where(is_trim, lp_trim_t * (et.float() + 1.0), bnd)
+            frm = torch.where(is_trim, FROM_U, frm)
+            p2, p1 = p1, bnd
+            acc = acc | (frm << (2 * j))
+            racc = racc | (right << j)
+            # start-cell tracking (event_handling.cpp:324-340)
+            o_fin = (n_km - 1) - k0
+            e_fin = e0 - o_fin
+            ok = (o_fin >= 0) & (o_fin < W) & (e_fin >= 0) & (e_fin < n_ev)
+            fin_val = bnd[rows, o_fin.clamp(0, W - 1)]
+            cand = fin_val + (n_ev - e_fin).float() * lp_trim_t
+            better = ok & (cand > bs)
+            bs = torch.where(better, cand, bs)
+            be = torch.where(better, e_fin, be)
+        trace[step] = acc.to(torch.uint8)
+        rights[step] = racc[:, 0].to(torch.uint8)
+    return trace, rights, be[:, 0].int(), bs[:, 0]
+
+
+def chase_rows(S: int) -> int:
+    """Rows of the chase's output for a trace of S packed rows."""
+    return -(-S // CH_ROWS) * CH_ROWS
+
+
+def backtrace_moves_plain(trace: torch.Tensor,       # (S, B, W) u8
+                          rights: torch.Tensor,      # (S, B) u8
+                          best_event: torch.Tensor,  # (B,) i32
+                          n_kmers: torch.Tensor,     # (B,) i32
+                          bandwidth: int = 100) -> torch.Tensor:
+    """Plain twin of kernel B: the band countdown over all reads in lockstep.
+    Returns the (Sp, B) u8 stream, bands strictly descending, 4 per byte."""
+    dev = trace.device
+    S, B, W = trace.shape
+    half = bandwidth // 2
+    Sp = chase_rows(S)
+    rights_i = rights.long()
+    bits = torch.stack([(rights_i >> j) & 1 for j in range(4)], dim=1)
+    n_right = bits.sum(dim=(0, 1))                            # (B,)
+    bll = half + 4 * Sp - n_right
+    e = best_event.long()
+    k = n_kmers.long() - 1
+    done = (e < 0) | (k < 0)
+    cols = torch.arange(B, device=dev)
+    out = torch.empty((Sp, B), dtype=torch.uint8, device=dev)
+    for r in range(Sp):
+        sr = Sp - 1 - r
+        acc = torch.zeros(B, dtype=torch.long, device=dev)
+        for m in range(4):
+            j = 3 - m
+            band = sr * 4 + j + 2
+            active = (~done) & (e + k + 2 == band)
+            if sr < S:
+                off = (bll - e).clamp(0, W - 1)
+                code = (trace[sr, cols, off].long() >> (2 * j)) & 3
+                rbit = bits[sr, j]
+            else:
+                code = torch.zeros_like(e)
+                rbit = 0
+            is_d = active & (code == MOVE_D)
+            is_u = active & (code == MOVE_U)
+            is_l = active & (code == MOVE_L)
+            e = e - (is_d | is_u).long()
+            k = k - (is_d | is_l).long()
+            done = done | (e < 0) | (k < 0)
+            acc = acc | (torch.where(active, code, MOVE_PAD) << (2 * m))
+            bll = bll - (1 - rbit)
+        out[r] = acc.to(torch.uint8)
+    return out
+
+
+def decode_moves_host(packed: np.ndarray, col: int, best_event: int,
+                      n_kmers: int, event_means: np.ndarray,
+                      scaled_events: np.ndarray, mu: np.ndarray,
+                      inv_sigma: np.ndarray, lp_const: np.ndarray,
+                      query_to_ref: np.ndarray, kmer_ranks_ref: np.ndarray):
+    """Host decode of one read's packed move stream into event alignment
+    pairs, QC statistics and Theil-Sen cleaned signals — the numpy twin of
+    ``native.decode_moves`` (event_handling.cpp:318-443)."""
+    bytes_ = packed[:, col].astype(np.int64)
+    moves = np.stack([(bytes_ >> (2 * j)) & 3 for j in range(4)],
+                     axis=1).reshape(-1)
+    # PAD entries are gaps at skipped bands; filtering keeps the walk order
+    moves = moves[moves != MOVE_PAD]
+    n = moves.shape[0]
+    if n == 0:
+        return (np.empty((0, 2), np.int64), np.empty(0), np.empty(0, np.int64),
+                float("-inf"), False, 0)
+    is_d = moves == MOVE_D
+    is_u = moves == MOVE_U
+    is_l = moves == MOVE_L
+    # backward-order positions: e decreases on D/U, k on D/L
+    e = best_event - np.concatenate([[0], np.cumsum(is_d | is_u)[:-1]])
+    k = (n_kmers - 1) - np.concatenate([[0], np.cumsum(is_d | is_l)[:-1]])
+    pairs = np.stack([e[::-1], k[::-1]], axis=1).astype(np.int64)
+
+    a = (scaled_events[e] - mu[k]) * inv_sigma[k]
+    emission = lp_const[k] - np.float32(0.5) * a * a
+    avg_log_emission = float(np.mean(emission.astype(np.float64)))
+    spanned = bool(pairs[0, 1] == 0 and pairs[-1, 1] == n_kmers - 1)
+    # max gap: longest run of consecutive L moves
+    if is_l.any():
+        padded = np.concatenate([[0], is_l.view(np.int8), [0]])
+        d = np.diff(padded)
+        max_gap = int((np.nonzero(d == -1)[0] - np.nonzero(d == 1)[0]).max())
+    else:
+        max_gap = 0
+    # cleaned signals: D closes a segment of the current event mean plus the
+    # U-accumulated later events (backward order, event_handling.cpp:352-394)
+    d_steps = np.nonzero(is_d)[0]
+    cleaned_signals = np.empty(0)
+    cleaned_ranks = np.empty(0, np.int64)
+    if d_steps.shape[0]:
+        seg_start = np.concatenate([[0], d_steps[:-1] + 1])
+        emitting = is_d | is_u
+        upto = d_steps[-1] + 1
+        vals = (event_means[e] * emitting)[:upto]
+        sums = np.add.reduceat(vals, seg_start)
+        counts = np.add.reduceat(emitting[:upto].astype(np.int64), seg_start)
+        means = sums / np.maximum(counts, 1)
+        por = query_to_ref[k[d_steps]]
+        keep = (por >= 0) & (por < kmer_ranks_ref.shape[0])
+        cleaned_signals = means[keep]
+        cleaned_ranks = kmer_ranks_ref[por[keep]]
+    return (pairs, cleaned_signals, cleaned_ranks, avg_log_emission, spanned,
+            max_gap)
+
+
+def prepare_emission_coefficients(kmer_ranks: np.ndarray, model: np.ndarray):
+    """Host helper: gather (mu, 1/sigma, lp_const) for a (B, K) rank array.
+    Ranks < 0 (undefined k-mers) get -inf lp_const so they never win."""
+    safe = np.where(kmer_ranks < 0, 0, kmer_ranks)
+    mu = model[safe, 0].astype(np.float32)
+    sigma = model[safe, 1].astype(np.float32)
+    inv_sigma = (1.0 / sigma).astype(np.float32)
+    lp_const = (LOG_INV_SQRT_2PI - np.log(sigma)).astype(np.float32)
+    lp_const[kmer_ranks < 0] = -np.inf
+    return mu, inv_sigma, lp_const
+
+
+def unpack_trace(trace_packed: np.ndarray, rights_packed: np.ndarray,
+                 n_bands: int) -> tuple[np.ndarray, np.ndarray]:
+    """Host helper: expand packed fill outputs to per-band arrays.  Returns
+    (trace (n_bands-2, B, W) u8, rights (n_bands-2, B) bool); index 0 is
+    band 2, the first adaptively placed band."""
+    S, B, W = trace_packed.shape
+    tr = np.zeros((S * 4, B, W), dtype=np.uint8)
+    rg = np.zeros((S * 4, B), dtype=bool)
+    for j in range(4):
+        tr[j::4] = (trace_packed >> (2 * j)) & 0x3
+        rg[j::4] = ((rights_packed >> j) & 1).astype(bool)
+    return tr[: n_bands - 2], rg[: n_bands - 2]

@@ -1,0 +1,108 @@
+"""PyTorch port on the card: each CUDA kernel against its plain PyTorch
+twin on the same CUDA tensors, and a small detect run on CUDA against the
+same run on the CPU.  Marked ``gpu``; they skip without CUDA.
+
+This file imports neither jax nor the shared conftest's fixtures, so on a
+machine without jax it runs as
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import dnascent_tpu_torch  # noqa: F401  (sets DNASCENT_TPU_NO_CACHE)
+from dnascent_tpu.config import DNA_R10
+from dnascent_tpu.io.poremodel import synthetic_model_set
+from dnascent_tpu.pipeline.source import SimulatedSource
+from dnascent_tpu_torch.ops import banded_cuda, viterbi as tvit, viterbi_cuda
+from dnascent_tpu_torch.pipeline.eventalign import HMM_KEY
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def models():
+    return synthetic_model_set(DNA_R10)
+
+
+def _fill_inputs(models, n_reads=4, length=800):
+    from dnascent_tpu_torch.pipeline import prep
+    recs = list(SimulatedSource(models, DNA_R10, n_reads=n_reads,
+                                length=length, seed=21))
+    group = [p for p in prep.quantile_scaled_reads(recs, models, DNA_R10)
+             if p.passed]
+    return prep.fill_inputs(group, models), prep.static_stdv_scalars(
+        models.pore_model)
+
+
+def test_banded_kernels_match_plain(cuda, models):
+    (scaled, mu, n_ev, n_km), (inv_sigma, lp_const) = _fill_inputs(models)
+    args = [torch.from_numpy(a).to(cuda) for a in (scaled, mu, n_ev, n_km)]
+    kw = dict(inv_sigma=inv_sigma, lp_const=lp_const)
+    got = banded_cuda.banded_fill_lean(*args, **kw)
+    want = banded_cuda.banded_fill_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):     # -fmad=false: bitwise equal
+        assert torch.equal(g, w)
+    moves = banded_cuda.backtrace_moves(got[0], got[1], got[2], args[3])
+    ref = banded_cuda.backtrace_moves_plain(got[0], got[1], got[2], args[3])
+    assert torch.equal(moves, ref)
+
+
+def test_viterbi_kernels_match_plain(cuda):
+    rng = np.random.default_rng(9)
+    W, T, N = 300, 128, 48
+    n_states = rng.integers(5, 42, W).astype(np.int32)
+    ranks = rng.integers(0, 4 ** 9, (N, W))
+    ranks[np.arange(N)[:, None] >= n_states[None, :]] = -1
+    table = np.stack([rng.normal(0, 1, 4 ** 9),
+                      np.full(4 ** 9, 0.14)], 1).astype(np.float32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    mu, inv, lpc = tvit.emission_planes(t(ranks), t(table))
+    obs = t(rng.normal(0, 1, (T, W)).astype(np.float32))
+    n_obs = t(rng.integers(10, T, W).astype(np.int32))
+    n_st = t(n_states)
+    hmm = tuple(getattr(DNA_R10.hmm, k) for k in HMM_KEY)
+    iM2M, eM2M, eOrIM2M, eM2MorD, logs = tvit.transition_scores(
+        t(rng.uniform(1.5, 3.0, W).astype(np.float32)), hmm)
+    fill_args = (obs, mu, inv, lpc, n_obs, n_st, iM2M, eM2M, eOrIM2M, logs)
+    got = viterbi_cuda.viterbi_fill_codes(*fill_args)
+    want = viterbi_cuda.viterbi_fill_plain(*fill_args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    _, kind0 = tvit.terminate(*got[1:], n_st, eM2MorD, logs[2])
+    path = viterbi_cuda.viterbi_backtrace(got[0], kind0, n_obs, n_st, T + N)
+    ref = viterbi_cuda.viterbi_backtrace_plain(got[0], kind0, n_obs, n_st,
+                                               T + N)
+    for g, w in zip(path, ref):
+        assert torch.equal(g, w)
+
+
+def test_detect_cuda_matches_cpu(cuda, models):
+    from dnascent_tpu_torch.models import cnn
+    from dnascent_tpu_torch.pipeline.detect import detect_reads
+
+    model = cnn.init_untrained(cnn.DetectCNN(d_model=32, dilations=(1, 2)))
+    runs = []
+    for dev in ("cpu", cuda):
+        src = SimulatedSource(models, DNA_R10, n_reads=3, length=1200, seed=4)
+        runs.append(dict(detect_reads(src, models, model.to(dev), device=dev)))
+    cpu, gpu = runs
+    assert cpu.keys() == gpu.keys() and cpu
+    for rid in cpu:
+        np.testing.assert_array_equal(cpu[rid].ref_coords, gpu[rid].ref_coords)
+        # bf16 convolutions round differently in oneDNN and cuDNN
+        np.testing.assert_allclose(cpu[rid].brdu_prob, gpu[rid].brdu_prob,
+                                   atol=0.05)

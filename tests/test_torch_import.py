@@ -1,0 +1,120 @@
+"""PyTorch port: it imports and runs without jax, and its CLI refuses what
+is not ported rather than ignoring it."""
+
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+import dnascent_tpu_torch  # noqa: F401  (sets DNASCENT_TPU_NO_CACHE)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "dnascent_tpu_torch")
+
+# Run in a fresh interpreter: this test process already imported jax
+# (tests/conftest.py).  A meta-path hook refuses jax/flax/optax, so any
+# import of them fails; afterwards none may sit in sys.modules.
+_NO_JAX = r"""
+import sys
+class _Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax"):
+            raise ImportError(f"{name} is blocked")
+        return None
+sys.meta_path.insert(0, _Block())
+import numpy as np, torch
+import dnascent_tpu_torch
+import dnascent_tpu_torch.cli, dnascent_tpu_torch.__main__
+from dnascent_tpu_torch.pipeline import detect, eventalign, prep
+from dnascent_tpu_torch.io import writers
+from dnascent_tpu_torch.models import cnn
+from dnascent_tpu_torch.ops import banded_cuda, viterbi_cuda
+rng = np.random.default_rng(0)
+ev = torch.from_numpy(rng.normal(0, 1, (2, 60)).astype(np.float32))
+mu = torch.from_numpy(rng.normal(0, 1, (2, 40)).astype(np.float32))
+n = lambda *v: torch.tensor(v, dtype=torch.int32)
+tp, rp, be, bs = banded_cuda.banded_fill_lean(ev, mu, n(60, 50), n(40, 35),
+                                              inv_sigma=7.0, lp_const=0.5)
+mv = banded_cuda.backtrace_moves(tp, rp, be, n(40, 35))
+assert mv.shape[1] == 2 and torch.isfinite(bs).all()
+assert dnascent_tpu_torch.cli.main(["--version"]) == 0
+bad = sorted(m for m in sys.modules if m.split(".")[0] in
+             ("jax", "jaxlib", "flax", "optax"))
+assert not bad, bad
+print("NO_JAX_OK")
+"""
+
+
+def test_port_imports_and_runs_without_jax():
+    env = dict(os.environ)
+    env.pop("DNASCENT_TPU_NO_CACHE", None)   # the package must set it
+    res = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "NO_JAX_OK" in res.stdout
+
+
+def test_no_source_file_imports_jax():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|flax|optax)\b", re.M)
+    for dirpath, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                with open(os.path.join(dirpath, f)) as fh:
+                    assert not pat.search(fh.read()), f
+
+
+def test_cli_refuses_unported_features(tmp_path, capsys):
+    from dnascent_tpu_torch import cli
+    base = ["detect", "-b", "x.bam", "-r", "x.fa", "-i", "x.idx"]
+    for extra in (["-o", str(tmp_path / "o.bam")],
+                  ["-o", str(tmp_path / "o.detect"), "--HMM"],
+                  ["-o", str(tmp_path / "o.detect"), "--strict-windows"],
+                  ["-o", str(tmp_path / "o.detect"), "--nprocs", "2"]):
+        assert cli.main(base + extra) == 1
+        assert "Not ported" in capsys.readouterr().err
+    assert not list(tmp_path.iterdir())
+    assert cli.main(["align"]) == 1
+    assert cli.main(["detect", *base[1:], "-o", "o.txt"]) == 1
+    # weights for the reference topology (kernel F's model) are refused
+    # before any input is read
+    ref_npz = str(tmp_path / "ref.npz")
+    np.savez(ref_npz, **{"gru0/kernel": np.zeros((2, 3), np.float32)})
+    with pytest.raises(SystemExit, match="Not ported"):
+        cli.main(base + ["-o", str(tmp_path / "o.detect"), "--device", "cpu",
+                         "--cnn-weights", ref_npz])
+
+
+def test_cli_detect_runs_with_untrained_weights(tmp_path, models):
+    """The port's own untrained weights (seeded torch generator) on a tiny
+    dataset: one record per passing read, probabilities in [0, 1]; a
+    ``--resume`` rerun skips every completed read and leaves the file as
+    it was."""
+    from dnascent_tpu.testing.dataset import build_dataset
+    ds = build_dataset(str(tmp_path / "ds"), models, n_reads=2,
+                       read_length=1200, signal_format="fast5", seed=3)
+    out = str(tmp_path / "u.detect")
+    cmd = [sys.executable, "-m", "dnascent_tpu_torch", "detect", "-b", ds.bam,
+           "-r", ds.reference_fa, "-i", ds.index, "-o", out, "-l", "1000",
+           "--device", "cpu", "--allow-untrained-cnn"]
+    env = dict(os.environ, DNASCENT_TPU_MODELS="/nonexistent",
+               OMP_NUM_THREADS="2")
+    res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    with open(out) as fh:
+        text = fh.read()
+    lines = [l for l in text.splitlines() if not l.startswith("#")]
+    assert sum(l.startswith(">") for l in lines) == 2
+    probs = np.array([[float(x) for x in l.split("\t")[1:3]]
+                      for l in lines if not l.startswith(">")])
+    assert probs.size and ((probs >= 0) & (probs <= 1)).all()
+
+    res = subprocess.run(cmd + ["--resume"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "skipping 2 completed reads" in res.stderr
+    with open(out) as fh:
+        assert fh.read() == text
