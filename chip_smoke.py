@@ -5,20 +5,35 @@
 
 Phases, one line each:
   0. set-up: card name and power limit, torch/CUDA/nvcc/triton versions,
-     build of the four CUDA kernels from ``dnascent_tpu_torch/csrc``;
-  1. each kernel against its plain PyTorch twin on the card, at the main
-     path's shapes (banded fill and chase: 32 reads of 10 kb; Viterbi fill
-     and backtrace: 2048 windows, T=192, N=48), with both times;
+     build of the six CUDA kernels (five sources, one nvcc each, in
+     parallel) from ``dnascent_tpu_torch/csrc``, with ptxas's register
+     and spill counts;
+  1. each kernel against its plain PyTorch twin on the card, with both
+     times: the static and the per-k-mer-stdv fills and the chase at the
+     main path's 32 reads of 10 kb; Viterbi fill and backtrace at 2048
+     windows, T=192, N=48; the GRU encoder at 2^19 rows of 20 samples
+     (padded tails, rows of the code q=128);
   2. four 2 kb reads through ``detect_reads`` on CUDA and on the CPU with
-     the same weights: positions equal, probabilities within tolerance;
+     the same DetectCNN weights: positions equal, probabilities within
+     tolerance;
   3. the main path: 64 reads of 10 kb at batch 32 through ``detect_reads``
      on CUDA with the default-width DetectCNN (untrained, seeded weights),
-     written as ``.detect``; every kernel must have launched.
+     written as ``.detect``; kernels A-D must have launched;
+  4. the ``--model`` path: the reference CNN topology, its seeded
+     synthetic weights (non-zero biases and BatchNorm statistics, as
+     trained weights have) written as a SavedModel directory and read back by
+     the port's loader; CPU against CUDA on four 2 kb reads, then 64 reads
+     of 10 kb at batch 32 on CUDA; kernels A-D and F must have launched;
+  5. the fit-stdv path: a pore model whose stdv varies per k-mer; CPU
+     against CUDA on four 2 kb reads, then 32 reads of 10 kb on CUDA;
+     kernel E must have launched and kernel A must not.
+Each path's launch counts are set to 0 just before it and read just after.
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase raises, so the script
 exits non-zero without that line, as it does without CUDA.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -32,10 +47,17 @@ for _mod in ("jax", "flax", "optax"):
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
-# tolerances (see PERF.md): kernels are built with -fmad=false and follow
-# their plain twins op for op, so every output must be bitwise equal; the
-# CUDA-vs-CPU detect run differs only in the bf16 CNN (cuDNN vs oneDNN)
+# tolerances (see PERF.md): the fills, chase and Viterbi kernels are built
+# with -fmad=false and follow their plain twins op for op, so their outputs
+# must be bitwise equal; the GRU encoder's dot products and expf/tanhf
+# differ from torch's by a few ulp, so it is held to the JAX contract's
+# 2e-5, with its masked steps (the code q=128) exactly as the twin's; the
+# CUDA-vs-CPU detect runs differ only in the bf16 CNN (cuDNN vs oneDNN),
+# and the reference topology's 40 bf16 conv layers spread further than the
+# DetectCNN's 17
 PROB_ATOL_CPU = 0.02
+REF_PROB_ATOL_CPU = 0.05
+GRU_ATOL = 2e-5
 
 
 def fail(msg: str):
@@ -45,6 +67,20 @@ def fail(msg: str):
 def cmd_line(args) -> str:
     res = subprocess.run(args, capture_output=True, text=True, timeout=60)
     return res.stdout.strip()
+
+
+def ptxas_report(log: str) -> dict:
+    """Each kernel's ptxas register/shared-memory line and spill line, by
+    (mangled) entry-function name, from an ``-Xptxas -v`` build log."""
+    out, name = {}, None
+    for line in log.splitlines():
+        line = line.strip()
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            out[name] = []
+        elif name and ("spill stores" in line or "Used" in line):
+            out[name].append(line.split(":", 1)[-1].strip())
+    return {k: "; ".join(v) for k, v in out.items()}
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -59,11 +95,11 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def compare(torch, name, kernel, plain, reps, shape):
+def compare(torch, name, kernel, plain, reps, shape, atol=0.0):
     """Launch ``kernel`` once, time it over ``reps`` more launches, run its
     plain twin once (host clock: a Python loop of many small launches) and
-    require every output to be bitwise equal.  Returns (kernel outputs,
-    table row)."""
+    require every output to be bitwise equal (``atol`` 0) or within
+    ``atol``.  Returns (kernel outputs, table row)."""
     got = kernel()
     torch.cuda.synchronize()
     ms = cuda_ms(torch, kernel, reps)
@@ -71,13 +107,45 @@ def compare(torch, name, kernel, plain, reps, shape):
     want = plain()
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    got_t = got if isinstance(got, tuple) else (got,)
-    want_t = want if isinstance(want, tuple) else (want,)
-    if not all(torch.equal(g, w) for g, w in zip(got_t, want_t)):
-        fail(f"{name} disagrees with its plain twin")
+    got_t = got if isinstance(got, (tuple, list)) else (got,)
+    want_t = want if isinstance(want, (tuple, list)) else (want,)
     err = max(float((g.double() - w.double()).abs().max()) if g.numel()
               else 0.0 for g, w in zip(got_t, want_t))
-    return got, dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, shape=shape)
+    if atol == 0.0:
+        if not all(torch.equal(g, w) for g, w in zip(got_t, want_t)):
+            fail(f"{name} disagrees with its plain twin")
+    elif not err <= atol:
+        fail(f"{name} differs from its plain twin by {err} > {atol}")
+    return got, dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, tol=atol,
+                     shape=shape)
+
+
+def fit_stdv_models(models):
+    """The model set with a fit-stdv pore model: the static model's means,
+    stdvs 0.10 to 0.18 varying per k-mer."""
+    from dnascent_tpu.io.poremodel import synthetic_model_table
+    return dataclasses.replace(
+        models, pore_model=synthetic_model_table(models.kmer_len, seed=1))
+
+
+def reference_tensors():
+    """The reference topology's seeded weights, every bias and BatchNorm
+    statistic non-zero."""
+    from dnascent_tpu_torch.models import reference_cnn
+    return reference_cnn.seed_affine(reference_cnn.synthetic_tensors(SEED),
+                                     SEED + 1)
+
+
+def reference_model(dev):
+    """The reference topology with seeded synthetic weights, written as a
+    SavedModel directory and read back through the port's loader (the one
+    ``detect --model`` uses)."""
+    from dnascent_tpu.testing.tf_bundle_writer import write_savedmodel_dir
+    from dnascent_tpu_torch.models import reference_cnn
+    with tempfile.TemporaryDirectory() as tmp:
+        model_dir = os.path.join(tmp, "detect_model")
+        write_savedmodel_dir(model_dir, reference_tensors())
+        return reference_cnn.load_savedmodel(model_dir).to(dev)
 
 
 def phase1_kernels(torch, np, models, dev):
@@ -100,7 +168,7 @@ def phase1_kernels(torch, np, models, dev):
     got, rows["banded_fill"] = compare(
         torch, "banded fill",
         lambda: banded_cuda.banded_fill_lean(*fill_args, **kw),
-        lambda: banded_cuda.banded_fill_plain(*fill_args, **kw), 3,
+        lambda: banded_cuda.banded_fill_plain(*fill_args, **kw), 10,
         list(fill_args[0].shape) + [fill_args[1].shape[1]])
 
     chase = (got[0], got[1], got[2], fill_args[3])
@@ -136,10 +204,67 @@ def phase1_kernels(torch, np, models, dev):
         torch, "Viterbi backtrace",
         lambda: viterbi_cuda.viterbi_backtrace(*bargs),
         lambda: viterbi_cuda.viterbi_backtrace_plain(*bargs), 10, [T, N, W])
+
+    rows["banded_fill_general"] = phase1_general_fill(torch, models, dev)
+    rows["gru_encoder"] = phase1_gru(torch, np, dev)
     return rows
 
 
-def phase2_cpu_agreement(torch, np, models, model, dev):
+def phase1_general_fill(torch, models, dev):
+    """Kernel E on a fit-stdv model, bitwise against its twin at A's shape,
+    32 reads of 10 kb."""
+    from dnascent_tpu.config import DNA_R10
+    from dnascent_tpu.pipeline.source import SimulatedSource
+    from dnascent_tpu_torch.ops import banded_cuda
+    from dnascent_tpu_torch.pipeline import prep
+
+    fit = fit_stdv_models(models)
+    recs = list(SimulatedSource(fit, DNA_R10, n_reads=32, length=10000,
+                                seed=SEED + 100))
+    group = [p for p in prep.quantile_scaled_reads(recs, fit, DNA_R10)
+             if p.passed]
+    args = [torch.from_numpy(a).to(dev)
+            for a in prep.general_fill_inputs(group, fit)]
+    _, row = compare(
+        torch, "per-k-mer-stdv fill",
+        lambda: banded_cuda.banded_fill_general(*args),
+        lambda: banded_cuda.banded_fill_general_plain(*args), 10,
+        list(args[0].shape) + [args[1].shape[1]])
+    return row
+
+
+def phase1_gru(torch, np, dev):
+    """Kernel F at 2^19 rows x 20 samples: seeded codes with padded tails
+    (0 to 20 live samples a row), code 128 sprinkled in, and 1024 rows made
+    only of q=128, whose dequantised value is 0.0 under IEEE division, so
+    every step of them is masked and their state stays exactly 0."""
+    from dnascent_tpu_torch.models import cnn, reference_cnn
+    from dnascent_tpu_torch.ops import gru_cuda
+
+    rng = np.random.default_rng(SEED + 9)
+    n, t = 1 << 19, cnn.RAWDEPTH
+    xq = np.clip(rng.normal(128, 30, (n, t)), 1, 255).astype(np.uint8)
+    counts = rng.integers(0, t + 1, n)
+    xq[np.arange(t)[None, :] >= counts[:, None]] = 0
+    xq[rng.random((n, t)) < 0.01] = 128
+    xq[:1024] = 128
+    xq = torch.from_numpy(xq).to(dev)
+    w = reference_cnn.params_from_tensors(
+        reference_cnn.ReferenceDetectCNN(),
+        reference_tensors()).gru.packed().detach().to(dev)
+    got, row = compare(
+        torch, "GRU encoder", lambda: gru_cuda.gru_encoder(xq, w),
+        lambda: gru_cuda.gru_encoder_plain(xq, w), 10, [n, t],
+        atol=GRU_ATOL)
+    if bool((got[:1024] != 0).any()):
+        fail("GRU encoder: a step of the code q=128 was not masked")
+    return row
+
+
+def cpu_agreement(torch, np, models, model, dev, tol):
+    """Four 2 kb reads through ``detect_reads`` on the CPU and on CUDA with
+    the same weights: read sets and positions equal, probabilities within
+    ``tol``."""
     from dnascent_tpu.config import DNA_R10
     from dnascent_tpu.pipeline.source import SimulatedSource
     from dnascent_tpu_torch.pipeline.detect import detect_reads
@@ -163,14 +288,17 @@ def phase2_cpu_agreement(torch, np, models, model, dev):
         n_pos += a.ref_coords.shape[0]
         err = max(err, float(np.abs(a.brdu_prob - b.brdu_prob).max()),
                   float(np.abs(a.edu_prob - b.edu_prob).max()))
-    if err > PROB_ATOL_CPU:
-        fail(f"CPU/CUDA probabilities differ by {err} > {PROB_ATOL_CPU}")
+    if err > tol:
+        fail(f"CPU/CUDA probabilities differ by {err} > {tol}")
     return dict(reads=len(cpu), t_positions=n_pos, max_prob_diff=err,
-                tol=PROB_ATOL_CPU)
+                tol=tol)
 
 
-def phase3_main_path(torch, np, models, model, dev, counters, n_reads=64,
-                     length=10000):
+def drive(torch, np, models, model, dev, counters, required, n_reads=64,
+          length=10000, absent=()):
+    """One path: ``n_reads`` reads of ``length`` at batch 32 through
+    ``detect_reads`` on CUDA, written as ``.detect``; every kernel named in
+    ``required`` must have launched in this run, none in ``absent``."""
     from dnascent_tpu.config import DNA_R10
     from dnascent_tpu.pipeline.source import SimulatedSource
     from dnascent_tpu_torch.io.writers import DetectHRWriter, detect_header
@@ -215,9 +343,12 @@ def phase3_main_path(torch, np, models, model, dev, counters, n_reads=64,
         fail("no called sites")
     if stats.processed != n_reads:
         fail(f"processed {stats.processed} of {n_reads} reads")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in required if launches[k] == 0]
     if missing:
-        fail(f"kernels never launched on the main path: {missing}")
+        fail(f"kernels never launched on this path: {missing}")
+    wrong = [k for k in absent if launches[k] != 0]
+    if wrong:
+        fail(f"kernels launched off this path: {wrong}")
     return dict(reads=n_reads, passed=n_written, failed_qc=stats.failed,
                 called_sites=n_sites, wall_s=wall,
                 reads_per_s=n_reads / wall, peak_mem_bytes=peak,
@@ -234,7 +365,8 @@ def main() -> int:
     from dnascent_tpu.config import DNA_R10
     from dnascent_tpu.io.poremodel import synthetic_model_set
     from dnascent_tpu_torch.models import cnn
-    from dnascent_tpu_torch.ops import banded_cuda, cuda_lib, viterbi_cuda
+    from dnascent_tpu_torch.ops import (banded_cuda, cuda_lib, gru_cuda,
+                                        viterbi_cuda)
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -250,8 +382,7 @@ def main() -> int:
     nvcc_v = cmd_line([cuda_lib.nvcc_path(), "--version"]).splitlines()
     t0 = time.perf_counter()
     cuda_lib.lib(verbose=True)
-    regs = [line.split(":", 1)[1].strip() for line in
-            cuda_lib.build_log.splitlines() if "Used" in line]
+    regs = ptxas_report(cuda_lib.build_log)
     print("phase 0 setup: " + json.dumps(dict(
         torch=torch.__version__, cuda=torch.version.cuda,
         nvcc=nvcc_v[-1] if nvcc_v else "absent", triton=triton_v,
@@ -265,31 +396,57 @@ def main() -> int:
     print("phase 1 kernels vs plain: " + json.dumps(rows), flush=True)
 
     model = cnn.init_untrained(cnn.DetectCNN(), seed=SEED).to(dev)
-    p2 = phase2_cpu_agreement(torch, np, models, model, dev)
+    p2 = cpu_agreement(torch, np, models, model, dev, PROB_ATOL_CPU)
     print("phase 2 cuda vs cpu detect: " + json.dumps(p2), flush=True)
 
     counters = {"banded_fill": banded_cuda.FILL_LAUNCHES,
                 "banded_chase": banded_cuda.CHASE_LAUNCHES,
                 "viterbi_fill": viterbi_cuda.FILL_LAUNCHES,
-                "viterbi_backtrace": viterbi_cuda.BACKTRACE_LAUNCHES}
-    p3 = phase3_main_path(torch, np, models, model, dev, counters)
+                "viterbi_backtrace": viterbi_cuda.BACKTRACE_LAUNCHES,
+                "banded_fill_general": banded_cuda.GENERAL_FILL_LAUNCHES,
+                "gru_encoder": gru_cuda.LAUNCHES}
+    a_to_d = ("banded_fill", "banded_chase", "viterbi_fill",
+              "viterbi_backtrace")
+    p3 = drive(torch, np, models, model, dev, counters, a_to_d)
     print("phase 3 main path: " + json.dumps(p3), flush=True)
 
+    ref = reference_model(dev)
+    p4 = dict(cuda_vs_cpu=cpu_agreement(torch, np, models, ref, dev,
+                                        REF_PROB_ATOL_CPU))
+    p4.update(drive(torch, np, models, ref, dev, counters,
+                    a_to_d + ("gru_encoder",)))
+    print("phase 4 --model path: " + json.dumps(p4), flush=True)
+
+    fit = fit_stdv_models(models)
+    p5 = dict(cuda_vs_cpu=cpu_agreement(torch, np, fit, model, dev,
+                                        PROB_ATOL_CPU))
+    p5.update(drive(torch, np, fit, model, dev, counters,
+                    ("banded_fill_general", "banded_chase", "viterbi_fill",
+                     "viterbi_backtrace"), n_reads=32,
+                    absent=("banded_fill",)))
+    print("phase 5 fit-stdv path: " + json.dumps(p5), flush=True)
+
+    # (source, TPU kernel, the path whose launch count the table shows)
     meta = {
         "banded_fill": ("dnascent_tpu_torch/csrc/banded_fill.cu",
-                        "dnascent_tpu/ops/banded_pallas.py:345"),
+                        "dnascent_tpu/ops/banded_pallas.py:345", p3),
         "banded_chase": ("dnascent_tpu_torch/csrc/banded_chase.cu",
-                         "dnascent_tpu/ops/banded_pallas.py:875"),
+                         "dnascent_tpu/ops/banded_pallas.py:875", p3),
         "viterbi_fill": ("dnascent_tpu_torch/csrc/viterbi_fill.cu",
-                         "dnascent_tpu/ops/viterbi_pallas.py:38"),
+                         "dnascent_tpu/ops/viterbi_pallas.py:38", p3),
         "viterbi_backtrace": ("dnascent_tpu_torch/csrc/viterbi_backtrace.cu",
-                              "dnascent_tpu/ops/viterbi_pallas.py:225"),
+                              "dnascent_tpu/ops/viterbi_pallas.py:225", p3),
+        "banded_fill_general": ("dnascent_tpu_torch/csrc/banded_fill.cu",
+                                "dnascent_tpu/ops/banded_pallas.py:41", p5),
+        "gru_encoder": ("dnascent_tpu_torch/csrc/gru_encoder.cu",
+                        "dnascent_tpu/models/reference_cnn.py:171", p4),
     }
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
-                    launches=p3["launches"][name],
+                    launches=path["launches"][name],
                     max_abs_err=rows[name]["max_abs_err"],
-                    ms=rows[name]["ms"], plain_ms=rows[name]["plain_ms"])
-               for name, (src, rep) in meta.items()]
+                    ms=rows[name]["ms"], plain_ms=rows[name]["plain_ms"],
+                    shape=rows[name]["shape"])
+               for name, (src, rep, path) in meta.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

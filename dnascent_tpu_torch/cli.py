@@ -2,10 +2,13 @@
 
 Run as ``python -m dnascent_tpu_torch detect ...`` or through the
 ``dnascent-tpu-torch`` entry point.  The flags are the JAX package's
-(``dnascent_tpu/cli.py``) plus ``--device`` (default ``cuda``).  Options
-whose code paths are not ported yet (modbam ``.bam`` output, ``--HMM``,
-``--model``, ``--strict-windows``, multi-device and multi-process runs)
-are refused with an error rather than ignored.
+(``dnascent_tpu/cli.py``) plus ``--device`` (default ``cuda``).  The CNN is
+the default DetectCNN (``--cnn-weights``) or the reference's trained
+topology (``--model <SavedModel dir>``, or ``--cnn-weights`` with an npz
+that ``trainCNN --fit-arch reference`` wrote).  Options whose code paths
+are not ported yet (modbam ``.bam`` output, ``--HMM``, ``--strict-windows``,
+multi-device and multi-process runs) are refused with an error rather than
+ignored.
 """
 
 from __future__ import annotations
@@ -41,9 +44,14 @@ def _detect_parser():
                    "kernels' plain PyTorch versions)")
     p.add_argument("--HMM", action="store_true", help="not ported yet")
     p.add_argument("--cnn-weights", default=None,
-                   help="npz weights for the detect CNN in the key layout "
-                   "dnascent_tpu.models.cnn.save_params writes")
-    p.add_argument("--model", default=None, help="not ported yet")
+                   help="npz weights in the key layout "
+                   "dnascent_tpu.models.cnn.save_params writes: the default "
+                   "detect CNN's, or the reference topology's (trainCNN "
+                   "--fit-arch reference)")
+    p.add_argument("--model", default=None,
+                   help="reference SavedModel directory (with its "
+                   "variables.data-* shards): run the reference's trained "
+                   "CNN topology")
     p.add_argument("--allow-untrained-cnn", action="store_true",
                    help="run with untrained weights from a seeded torch "
                    "generator (pipeline testing only; probabilities are "
@@ -63,8 +71,7 @@ def _unported(a) -> list[str]:
     out = []
     if a.output.rsplit(".", 1)[-1] == "bam":
         out.append("modbam (.bam) output")
-    for flag, on in (("--HMM", a.HMM), ("--model", a.model),
-                     ("--strict-windows", a.strict_windows),
+    for flag, on in (("--HMM", a.HMM), ("--strict-windows", a.strict_windows),
                      ("--devices", a.devices), ("--nprocs", a.nprocs > 1),
                      ("--procid", a.procid is not None),
                      ("--coordinator", a.coordinator)):
@@ -75,6 +82,12 @@ def _unported(a) -> list[str]:
 
 def _load_cnn(a, device):
     from .models import cnn as cnn_mod
+    from .models import reference_cnn
+    if a.model:
+        if not os.path.isdir(a.model):
+            raise SystemExit(f"Exiting with error.  SavedModel directory "
+                             f"{a.model} not found.")
+        return reference_cnn.load_savedmodel(a.model).to(device)
     model = cnn_mod.DetectCNN()
     if a.cnn_weights:
         if not os.path.exists(a.cnn_weights):
@@ -82,12 +95,14 @@ def _load_cnn(a, device):
                              f"{a.cnn_weights} not found.")
         import numpy as np
         with np.load(a.cnn_weights) as data:
-            if "gru0/kernel" in data.files:
-                # `trainCNN --fit-arch reference` weights: kernel F's model
-                raise SystemExit(
-                    "Exiting with error.  Not ported to dnascent_tpu_torch "
-                    "yet: the reference CNN topology these weights are for.")
-        cnn_mod.load_npz(model, a.cnn_weights)
+            flat = {k: data[k] for k in data.files}
+        if "gru0/kernel" in flat:
+            # npz written by `trainCNN --fit --fit-arch reference`: the
+            # reference topology fitted in-framework
+            model = reference_cnn.params_from_tree(
+                reference_cnn.ReferenceDetectCNN(), flat)
+        else:
+            cnn_mod.params_from_flax(model, flat)
     elif a.allow_untrained_cnn:
         cnn_mod.init_untrained(model)
         print("Warning: --allow-untrained-cnn — analogue probabilities "
@@ -98,8 +113,9 @@ def _load_cnn(a, device):
         # (src/tensor.cpp:48)
         raise SystemExit(
             "Exiting with error.  No trained CNN weights: pass "
-            "--cnn-weights <npz> (or --allow-untrained-cnn to force "
-            "untrained weights for pipeline testing).")
+            "--model <SavedModel dir> or --cnn-weights <npz> (or "
+            "--allow-untrained-cnn to force untrained weights for pipeline "
+            "testing).")
     return model.to(device)
 
 

@@ -1,5 +1,6 @@
-"""Wrappers for kernels A (banded fill) and B (backtrace chase), port of
-``dnascent_tpu/ops/banded_pallas.py``'s lean fill and chase.
+"""Wrappers for kernels A (static-stdv banded fill), E (per-k-mer-stdv
+banded fill) and B (backtrace chase), port of
+``dnascent_tpu/ops/banded_pallas.py``'s lean fill, general fill and chase.
 
 A wrapper runs the kernel for a CUDA tensor and its plain twin (imported
 here from ``ops/banded.py``) for a CPU tensor; any other device, dtype,
@@ -11,14 +12,30 @@ from __future__ import annotations
 import torch
 
 from . import cuda_lib
-from .banded import (backtrace_moves_plain, banded_fill_plain, chase_rows,
-                     lean_scalars, n_fill_steps)
+from .banded import (backtrace_moves_plain, banded_fill_general_plain,
+                     banded_fill_plain, chase_rows, emission_coefficients,
+                     lean_scalars, n_fill_steps, transition_scalars)
 
-__all__ = ["banded_fill_lean", "backtrace_moves", "banded_fill_plain",
-           "backtrace_moves_plain", "FILL_LAUNCHES", "CHASE_LAUNCHES"]
+__all__ = ["banded_fill_lean", "banded_fill_general", "backtrace_moves",
+           "banded_fill_plain", "banded_fill_general_plain",
+           "backtrace_moves_plain", "FILL_LAUNCHES", "GENERAL_FILL_LAUNCHES",
+           "CHASE_LAUNCHES"]
 
 FILL_LAUNCHES = cuda_lib.LaunchCounter()
+GENERAL_FILL_LAUNCHES = cuda_lib.LaunchCounter()
 CHASE_LAUNCHES = cuda_lib.LaunchCounter()
+
+
+def _fill_outputs(S: int, B: int, W: int, dev):
+    return (torch.empty((S, B, W), dtype=torch.uint8, device=dev),
+            torch.empty((S, B), dtype=torch.uint8, device=dev),
+            torch.empty(B, dtype=torch.int32, device=dev),
+            torch.empty(B, dtype=torch.float32, device=dev))
+
+
+def _check_bandwidth(bandwidth: int) -> None:
+    if not 2 <= bandwidth <= 128:
+        raise ValueError(f"bandwidth {bandwidth} outside the kernel's 2..128")
 
 
 def banded_fill_lean(events: torch.Tensor, mu: torch.Tensor,
@@ -41,26 +58,60 @@ def banded_fill_lean(events: torch.Tensor, mu: torch.Tensor,
     if not cuda_lib.use_kernel(dev):
         return banded_fill_plain(events, mu, n_events, n_kmers,
                                  bandwidth=bandwidth, **kw)
-    if not 2 <= bandwidth <= 128:
-        raise ValueError(f"bandwidth {bandwidth} outside the kernel's 2..128")
+    _check_bandwidth(bandwidth)
     lp_stay, lp_step, lp_skip, lp_trim, h_c = lean_scalars(
         n_events, n_kmers, **kw)
     W = bandwidth
     S = n_fill_steps(E, K)
-    trace = torch.empty((S, B, W), dtype=torch.uint8, device=dev)
-    rights = torch.empty((S, B), dtype=torch.uint8, device=dev)
-    best_event = torch.empty(B, dtype=torch.int32, device=dev)
-    best_score = torch.empty(B, dtype=torch.float32, device=dev)
-    lib = cuda_lib.lib()
-    err = lib.dt_banded_fill_lean(
+    out = _fill_outputs(S, B, W, dev)
+    err = cuda_lib.lib().dt_banded_fill_lean(
         events.data_ptr(), mu.data_ptr(), n_events.data_ptr(),
         n_kmers.data_ptr(), lp_stay.data_ptr(), lp_step.data_ptr(),
-        B, E, K, W, S, lp_skip, lp_trim, h_c, trace.data_ptr(),
-        rights.data_ptr(), best_event.data_ptr(), best_score.data_ptr(),
+        B, E, K, W, S, lp_skip, lp_trim, h_c, *(t.data_ptr() for t in out),
         cuda_lib.stream_handle(dev))
     cuda_lib.check(err, "banded_fill_lean")
     FILL_LAUNCHES.add()
-    return trace, rights, best_event, best_score
+    return out
+
+
+def banded_fill_general(events: torch.Tensor, mu: torch.Tensor,
+                        inv_sigma: torch.Tensor, lp_const: torch.Tensor,
+                        n_events: torch.Tensor, n_kmers: torch.Tensor, *,
+                        bandwidth: int = 100, epsilon_skip: float = 1e-30,
+                        p_trim: float = 0.01):
+    """Per-k-mer-stdv banded fill (kernel E).  ``events`` (B, E) f32 scaled
+    event means; ``mu``, ``inv_sigma``, ``lp_const`` (B, K) f32 per query
+    k-mer (-inf lp_const = undefined k-mer); ``n_events``/``n_kmers`` (B,)
+    i32.  Returns the same four outputs as :func:`banded_fill_lean`."""
+    dev = events.device
+    B, E = events.shape
+    K = mu.shape[1]
+    cuda_lib.check_tensor(events, "events", torch.float32, (B, E), dev)
+    for name, t in (("mu", mu), ("inv_sigma", inv_sigma),
+                    ("lp_const", lp_const)):
+        cuda_lib.check_tensor(t, name, torch.float32, (B, K), dev)
+    cuda_lib.check_tensor(n_events, "n_events", torch.int32, (B,), dev)
+    cuda_lib.check_tensor(n_kmers, "n_kmers", torch.int32, (B,), dev)
+    kw = dict(epsilon_skip=epsilon_skip, p_trim=p_trim)
+    if not cuda_lib.use_kernel(dev):
+        return banded_fill_general_plain(events, mu, inv_sigma, lp_const,
+                                         n_events, n_kmers,
+                                         bandwidth=bandwidth, **kw)
+    _check_bandwidth(bandwidth)
+    cA, cB, cC = emission_coefficients(mu, inv_sigma, lp_const)
+    lp_stay, lp_step, lp_skip, lp_trim = transition_scalars(
+        n_events, n_kmers, **kw)
+    W = bandwidth
+    S = n_fill_steps(E, K)
+    out = _fill_outputs(S, B, W, dev)
+    err = cuda_lib.lib().dt_banded_fill_general(
+        events.data_ptr(), cA.data_ptr(), cB.data_ptr(), cC.data_ptr(),
+        n_events.data_ptr(), n_kmers.data_ptr(), lp_stay.data_ptr(),
+        lp_step.data_ptr(), B, E, K, W, S, lp_skip, lp_trim,
+        *(t.data_ptr() for t in out), cuda_lib.stream_handle(dev))
+    cuda_lib.check(err, "banded_fill_general")
+    GENERAL_FILL_LAUNCHES.add()
+    return out
 
 
 def backtrace_moves(trace: torch.Tensor, rights: torch.Tensor,

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels (``dnascent_tpu_torch/csrc``).
 
-The four kernels are compiled by ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface and loaded with ctypes.  The build runs at
-first use, from the sources in the checkout, into ``build/torch_kernels/``
-at the repository root; the library's file name carries a hash of the
-sources and flags, so an edited source rebuilds and concurrent processes
-never load a half-written file.  Nothing here runs at import time.
+The kernels are compiled by ``nvcc`` for ``sm_90a``, one compiler process
+per source, all started together, and linked into one shared library with a
+plain C interface that is loaded with ctypes.  The build runs at first use,
+from the sources in the checkout, into ``build/torch_kernels/`` at the
+repository root; the library's file name carries a hash of the sources and
+flags, so an edited source rebuilds and concurrent processes never load a
+half-written file.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -21,11 +22,11 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 SOURCES = ("banded_fill.cu", "banded_chase.cu", "viterbi_fill.cu",
-           "viterbi_backtrace.cu")
+           "viterbi_backtrace.cu", "gru_encoder.cu")
 # -fmad=false: the fills compare scores for equality, so every multiply and
 # add must round like the plain PyTorch twin's separate ops (see common.cuh)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-fmad=false")
+              "-Xcompiler", "-fPIC", "-fmad=false")
 
 _lock = threading.Lock()
 _lib = None
@@ -38,6 +39,9 @@ _SIGNATURES = {
     # events, mu, n_events, n_kmers, lp_stay, lp_step, B, E, K, W, n_steps,
     # lp_skip, lp_trim, h_c, trace, rights, best_event, best_score, stream
     "dt_banded_fill_lean": [_P] * 6 + [_I] * 5 + [_F] * 3 + [_P] * 5,
+    # events, cA, cB, cC, n_events, n_kmers, lp_stay, lp_step, B, E, K, W,
+    # n_steps, lp_skip, lp_trim, trace, rights, best_event, best_score, stream
+    "dt_banded_fill_general": [_P] * 8 + [_I] * 5 + [_F] * 2 + [_P] * 5,
     # trace, rights, best_event, n_kmers, S, Sp, B, W, out, stream
     "dt_banded_chase": [_P] * 4 + [_I] * 4 + [_P] * 2,
     # obs, mu, inv_sigma, lp_const, n_obs, n_states, iM2M, eM2M, eOrIM2M,
@@ -46,6 +50,8 @@ _SIGNATURES = {
     # codes, kind0, n_obs, n_states, T, N, W, s_pad, path_code, path_len,
     # stream
     "dt_viterbi_backtrace": [_P] * 4 + [_I] * 4 + [_P] * 3,
+    # xq, w, N, T, scale, lo, out, stream
+    "dt_gru_encoder": [_P] * 2 + [_I] * 2 + [_F] * 2 + [_P] * 2,
 }
 
 
@@ -82,12 +88,30 @@ def build(verbose: bool = False) -> str:
         return lib_path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, *extra, "-I", CSRC, "-o", tmp,
-           *[os.path.join(CSRC, s) for s in SOURCES]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
+    objs = [f"{tmp}.{i}.o" for i in range(len(SOURCES))]
+    nvcc = nvcc_path()
+    procs = [subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, *extra, "-I", CSRC, "-c", "-o", obj,
+         os.path.join(CSRC, src)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(SOURCES, objs)]
+    logs, failed = [], []
+    for src, proc in zip(SOURCES, procs):
+        logs.append(proc.communicate()[0])
+        if proc.returncode != 0:
+            failed.append(f"{src} ({proc.returncode})")
+    if not failed:
+        res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs],
+                             capture_output=True, text=True)
+        logs.append(res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append(f"link ({res.returncode})")
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    build_log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n{build_log}")
     os.replace(tmp, lib_path)
     return lib_path
 

@@ -1,0 +1,116 @@
+"""Signal encoder of the reference CNN: two stacked Keras-v2 GRU(16) cells
+with ``reset_after`` over each position's window of raw samples.  Plain
+PyTorch twin of kernel F and the host helpers around it (port of
+``dnascent_tpu/models/reference_cnn.py``'s ``_gru_scan`` and
+``_gru_scan_pallas``).
+
+Gate math, order [z, r, h] (recurrent activation sigmoid, activation tanh):
+
+    z  = sigmoid(x.Wz + bxz + h.Uz + bhz)
+    r  = sigmoid(x.Wr + bxr + h.Ur + bhr)
+    hh = tanh(x.Wh + bxh + r * (h.Uh + bhh))
+    h' = z * h + (1 - z) * hh
+
+A masked step (padding, Keras Masking) carries both cells' states through.
+On the u8 path a step is masked when its code is 0 or its dequantised value
+is exactly 0.0; the dequantisation ``(q - 1) / SIG_QUANT_SCALE +
+SIG_QUANT_LO`` is an IEEE f32 division here and in the kernel, because the
+code q=128 lands next to 0.0 and the mask depends on how it rounds.
+
+Weights travel as one packed f32 vector (:func:`pack_weights`), the layout
+the kernel copies into shared memory: the matrices are stored transposed,
+(48, 16), so each gate's 16 weights are contiguous.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..models.cnn import SIG_QUANT_LO, SIG_QUANT_SCALE
+
+GRU_UNITS = 16
+GATES = 3 * GRU_UNITS
+# packed layout: cell-0 input row, four bias rows (b0x, b0h, b1x, b1h), then
+# the three 16x48 matrices U0, W1, U1, each transposed to (48, 16)
+_VECTORS = ("k0", "b0x", "b0h", "b1x", "b1h")
+_MATRICES = ("U0", "W1", "U1")
+PACKED_SIZE = (len(_VECTORS) + len(_MATRICES) * GRU_UNITS) * GATES
+
+
+def pack_weights(p0: dict, p1: dict) -> torch.Tensor:
+    """One contiguous f32 vector of PACKED_SIZE from the two cells'
+    ``kernel`` ((1, 48) and (16, 48)), ``recurrent`` (16, 48) and ``bias``
+    (2, 48) tensors."""
+    parts = dict(k0=p0["kernel"], b0x=p0["bias"][0], b0h=p0["bias"][1],
+                 b1x=p1["bias"][0], b1h=p1["bias"][1], U0=p0["recurrent"],
+                 W1=p1["kernel"], U1=p1["recurrent"])
+    flat = []
+    for name in _VECTORS + _MATRICES:
+        t = parts[name].float()
+        rows = GRU_UNITS if name in _MATRICES else 1
+        if t.numel() != rows * GATES:
+            raise ValueError(f"GRU weight {name} has shape {tuple(t.shape)}, "
+                             f"expected ({rows}, {GATES})")
+        t = t.reshape(rows, GATES)
+        flat.append((t.t() if name in _MATRICES else t).reshape(-1))
+    return torch.cat(flat).contiguous()
+
+
+def unpack_weights(w: torch.Tensor) -> dict:
+    """The (1, 48) vectors and the (16, 48) matrices of the packed vector,
+    as views (the inverse of pack_weights)."""
+    out, o = {}, 0
+    for name in _VECTORS:
+        out[name] = w[o : o + GATES].reshape(1, GATES)
+        o += GATES
+    for name in _MATRICES:
+        out[name] = w[o : o + GATES * GRU_UNITS].reshape(GATES, GRU_UNITS).t()
+        o += GATES * GRU_UNITS
+    return out
+
+
+def dequantise(xq: torch.Tensor):
+    """(x f32, live bool) of u8 codes: x = (q - 1) / SIG_QUANT_SCALE +
+    SIG_QUANT_LO by IEEE division (a 0-dim divisor on the tensor's own
+    device, so no backend swaps it for a reciprocal multiply), live where
+    q != 0 and x != 0.0."""
+    q = xq.to(torch.float32)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    x = (q - 1.0) / torch.tensor(SIG_QUANT_SCALE, **f32) \
+        + torch.tensor(SIG_QUANT_LO, **f32)
+    return x, (q != 0.0) & (x != 0.0)
+
+
+def _cell(gx: torch.Tensor, gh: torch.Tensor, h: torch.Tensor):
+    u = GRU_UNITS
+    z = torch.sigmoid(gx[:, :u] + gh[:, :u])
+    r = torch.sigmoid(gx[:, u : 2 * u] + gh[:, u : 2 * u])
+    hh = torch.tanh(gx[:, 2 * u :] + r * gh[:, 2 * u :])
+    return z * h + (1.0 - z) * hh
+
+
+def gru_scan_plain(x: torch.Tensor, live: torch.Tensor,
+                   w: torch.Tensor) -> torch.Tensor:
+    """The two cells over the sample axis: ``x`` (N, T) f32 samples,
+    ``live`` (N, T) bool, ``w`` the packed weights.  Returns the second
+    cell's final state, (N, 16) f32."""
+    p = unpack_weights(w)
+    n = x.shape[0]
+    h0 = torch.zeros((n, GRU_UNITS), dtype=torch.float32, device=x.device)
+    h1 = torch.zeros_like(h0)
+    for t in range(x.shape[1]):
+        # a (N, 1) x (1, 48) product is one rounded multiply per element
+        n0 = _cell(x[:, t : t + 1] * p["k0"] + p["b0x"],
+                   h0 @ p["U0"] + p["b0h"], h0)
+        n1 = _cell(n0 @ p["W1"] + p["b1x"], h1 @ p["U1"] + p["b1h"], h1)
+        m = live[:, t : t + 1]
+        h0 = torch.where(m, n0, h0)
+        h1 = torch.where(m, n1, h1)
+    return h1
+
+
+def gru_encoder_plain(xq: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Plain twin of kernel F: ``xq`` (N, T) u8 codes (0 = padding) ->
+    (N, 16) f32."""
+    x, live = dequantise(xq)
+    return gru_scan_plain(x, live, w)

@@ -19,7 +19,7 @@ import threading
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import Iterable, Optional
+from typing import Iterable, Optional, Union
 
 import numpy as np
 import torch
@@ -31,11 +31,14 @@ from dnascent_tpu.utils.seqtools import _COMP_TABLE as _COMP_U8
 
 from .. import device as devmod
 from ..models import cnn as cnn_mod
+from ..models.reference_cnn import ReferenceDetectCNN
 from .eventalign import AlignedPositions, run_eventalign
 from .prep import PreparedRead, prepare_reads
 
 # positions per CNN call before halo chunking starts
 CNN_CHUNK_POSITIONS = 32768
+# either detect CNN: same call, (B, L, 3) probabilities, receptive_field()
+DetectModel = Union[cnn_mod.DetectCNN, ReferenceDetectCNN]
 
 
 @dataclass
@@ -153,7 +156,7 @@ def _signal_windows(flat_u8: torch.Tensor, counts: torch.Tensor, B: int,
 
 
 @torch.no_grad()
-def run_cnn_batched(model: cnn_mod.DetectCNN, results: dict,
+def run_cnn_batched(model: DetectModel, results: dict,
                     prepped: list[PreparedRead], device,
                     batch_positions: int = 1 << 19,
                     chunk_positions: int = CNN_CHUNK_POSITIONS) -> dict:
@@ -227,7 +230,7 @@ def collect_calls(rec: ReadRecord, pos: AlignedPositions,
 
 
 def detect_reads(records: Iterable[ReadRecord], models: PoreModelSet,
-                 model: cnn_mod.DetectCNN, cfg: SubstrateConfig = DNA_R10,
+                 model: DetectModel, cfg: SubstrateConfig = DNA_R10,
                  device="cuda", batch_size: int = 32,
                  stats: Optional[DetectStats] = None,
                  collect_failures: bool = False, pipeline_depth: int = 4):

@@ -2,10 +2,11 @@
 Theil-Sen (port of ``dnascent_tpu/pipeline/prep.py``).
 
 Per batch of reads: native event detection and quantile scaling on the
-host, the banded fill (kernel A) and backtrace chase (kernel B) on the
-device, the native move decode and QC on the host, then the batched
-Theil-Sen refinement on the device.  Only the static-stdv pore model (the
-shipping case) is ported; the per-k-mer-stdv fill is still to port.
+host, the banded fill and backtrace chase (kernel B) on the device, the
+native move decode and QC on the host, then the batched Theil-Sen
+refinement on the device.  The fill is kernel A for a static-stdv pore
+model (the shipping case) and kernel E for one whose stdv varies per k-mer
+(the fit-stdv tables trainGMM output feeds).
 """
 
 from __future__ import annotations
@@ -67,14 +68,12 @@ class PreparedRead:
         return int(self.kmer_ranks_query.shape[0])
 
 
-def static_stdv_scalars(pore_model: np.ndarray) -> tuple[float, float]:
-    """(inv_sigma, lp_const) of a static-stdv table; raises for a table
-    whose stdv varies per k-mer (that fill, kernel E, is not ported)."""
+def static_stdv_scalars(pore_model: np.ndarray):
+    """(inv_sigma, lp_const) of a static-stdv table, for kernel A; None for
+    a table whose stdv varies per k-mer, which takes kernel E."""
     sig = pore_model[:, 1]
     if not np.all(sig == sig[0]):
-        raise NotImplementedError(
-            "pore models with per-k-mer stdv need the general banded fill, "
-            "which the PyTorch port does not have yet")
+        return None
     s0 = float(sig[0])
     return 1.0 / s0, float(banded.LOG_INV_SQRT_2PI - np.log(s0))
 
@@ -111,24 +110,47 @@ def quantile_scaled_reads(records: list[ReadRecord], models: PoreModelSet,
     return prepped
 
 
-def fill_inputs(group: list[PreparedRead], models: PoreModelSet):
-    """Host arrays of one fill launch: (scaled events (B, E) f32, mu (B, K)
-    f32 with +inf past each read's k-mers, n_events (B,) i32, n_kmers (B,)
-    i32), E and K the group's longest read."""
+def _ranked_group(group: list[PreparedRead]):
+    """(scaled events (B, E) f32, k-mer ranks (B, K) i64 with -1 past each
+    read's k-mers, n_events (B,) i32, n_kmers (B,) i32), E and K the
+    group's longest read."""
     B = devmod.pad_rows(len(group))
     E = max(p.n_events for p in group)
     K = max(p.n_kmers for p in group)
     scaled = np.zeros((B, E), dtype=np.float32)
-    mu = np.full((B, K), np.inf, dtype=np.float32)
+    # undefined (N-containing) k-mers take the A-substituted rank
+    # (data_IO.cpp:131); -1 marks the padding past each read's k-mers
+    ranks = np.full((B, K), -1, dtype=np.int64)
     n_ev = np.zeros(B, dtype=np.int32)
     n_km = np.zeros(B, dtype=np.int32)
     for b, p in enumerate(group):
         ne, nk = p.n_events, p.n_kmers
         scaled[b, :ne] = (p.event_mean - p.shift) / p.scale
-        mu[b, :nk] = models.pore_model[np.where(p.kmer_ranks_query < 0, 0,
-                                                p.kmer_ranks_query), 0]
+        ranks[b, :nk] = np.where(p.kmer_ranks_query < 0, 0,
+                                 p.kmer_ranks_query)
         n_ev[b], n_km[b] = ne, nk
+    return scaled, ranks, n_ev, n_km
+
+
+def fill_inputs(group: list[PreparedRead], models: PoreModelSet):
+    """Host arrays of one static-stdv fill launch (kernel A): (scaled
+    events (B, E) f32, mu (B, K) f32 with +inf past each read's k-mers,
+    n_events (B,) i32, n_kmers (B,) i32)."""
+    scaled, ranks, n_ev, n_km = _ranked_group(group)
+    mu = np.where(ranks < 0, np.float32(np.inf),
+                  models.pore_model[np.maximum(ranks, 0), 0]).astype(
+                      np.float32)
     return scaled, mu, n_ev, n_km
+
+
+def general_fill_inputs(group: list[PreparedRead], models: PoreModelSet):
+    """Host arrays of one per-k-mer-stdv fill launch (kernel E): (scaled
+    events, mu, inv_sigma, lp_const (B, K) f32 with -inf lp_const past each
+    read's k-mers, n_events, n_kmers)."""
+    scaled, ranks, n_ev, n_km = _ranked_group(group)
+    mu, inv_sigma, lp_const = banded.prepare_emission_coefficients(
+        ranks, models.pore_model)
+    return scaled, mu, inv_sigma, lp_const, n_ev, n_km
 
 
 def _fill_groups(live: list[PreparedRead]) -> list[list[PreparedRead]]:
@@ -152,8 +174,15 @@ def prepare_reads(records: list[ReadRecord], models: PoreModelSet,
     live = [p for p in prepped if p.passed]
     if not live:
         return prepped
-    inv_sigma, lp_const = static_stdv_scalars(models.pore_model)
     bw = cfg.banded.bandwidth
+    fill_kw = dict(bandwidth=bw, epsilon_skip=cfg.banded.epsilon_skip,
+                   p_trim=cfg.banded.p_trim)
+    static = static_stdv_scalars(models.pore_model)
+    if static is None:
+        build, fill = general_fill_inputs, banded_cuda.banded_fill_general
+    else:
+        build, fill = fill_inputs, banded_cuda.banded_fill_lean
+        fill_kw.update(inv_sigma=static[0], lp_const=static[1])
     cleaned: dict[int, tuple[np.ndarray, np.ndarray]] = {}
     decode = (native.decode_moves if native.available()
               else banded.decode_moves_host)
@@ -161,16 +190,14 @@ def prepare_reads(records: list[ReadRecord], models: PoreModelSet,
     # dispatch every group's fill + chase, then collect
     dispatched = []
     for group in _fill_groups(live):
-        scaled, mu, n_ev, n_km = fill_inputs(group, models)
-        scaled_dev = devmod.put_rows(scaled, dev)
-        n_km_dev = devmod.put_rows(n_km, dev)
+        arrays = build(group, models)
+        scaled = arrays[0]
+        args = [devmod.put_rows(a, dev) for a in arrays]
+        scaled_dev, n_km_dev = args[0], args[-1]
         for b, p in enumerate(group):
             p.shift_q, p.scale_q = p.shift, p.scale
             p.events_dev, p.events_row = scaled_dev, b
-        tp, rp, best_e, _ = banded_cuda.banded_fill_lean(
-            scaled_dev, devmod.put_rows(mu, dev), devmod.put_rows(n_ev, dev),
-            n_km_dev, inv_sigma=inv_sigma, lp_const=lp_const, bandwidth=bw,
-            epsilon_skip=cfg.banded.epsilon_skip, p_trim=cfg.banded.p_trim)
+        tp, rp, best_e, _ = fill(*args, **fill_kw)
         moves = banded_cuda.backtrace_moves(tp, rp, best_e, n_km_dev,
                                             bandwidth=bw)
         dispatched.append((group, scaled, moves, best_e))

@@ -1,6 +1,7 @@
 """PyTorch port on the card: each CUDA kernel against its plain PyTorch
-twin on the same CUDA tensors, and a small detect run on CUDA against the
-same run on the CPU.  Marked ``gpu``; they skip without CUDA.
+twin on the same CUDA tensors, and small detect runs (default CNN, and the
+reference topology) on CUDA against the same runs on the CPU.  Marked
+``gpu``; they skip without CUDA.
 
 This file imports neither jax nor the shared conftest's fixtures, so on a
 machine without jax it runs as
@@ -8,15 +9,19 @@ machine without jax it runs as
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 import dnascent_tpu_torch  # noqa: F401  (sets DNASCENT_TPU_NO_CACHE)
 from dnascent_tpu.config import DNA_R10
-from dnascent_tpu.io.poremodel import synthetic_model_set
+from dnascent_tpu.io.poremodel import synthetic_model_set, synthetic_model_table
 from dnascent_tpu.pipeline.source import SimulatedSource
-from dnascent_tpu_torch.ops import banded_cuda, viterbi as tvit, viterbi_cuda
+from dnascent_tpu_torch.models import reference_cnn
+from dnascent_tpu_torch.ops import (banded_cuda, gru_cuda, viterbi as tvit,
+                                    viterbi_cuda)
 from dnascent_tpu_torch.pipeline.eventalign import HMM_KEY
 
 pytestmark = pytest.mark.gpu
@@ -36,14 +41,21 @@ def models():
     return synthetic_model_set(DNA_R10)
 
 
-def _fill_inputs(models, n_reads=4, length=800):
+def _fill_inputs(models, build="fill_inputs", n_reads=4, length=800):
     from dnascent_tpu_torch.pipeline import prep
     recs = list(SimulatedSource(models, DNA_R10, n_reads=n_reads,
                                 length=length, seed=21))
     group = [p for p in prep.quantile_scaled_reads(recs, models, DNA_R10)
              if p.passed]
-    return prep.fill_inputs(group, models), prep.static_stdv_scalars(
+    return getattr(prep, build)(group, models), prep.static_stdv_scalars(
         models.pore_model)
+
+
+def _reference_tensors(seed):
+    """Seeded reference-topology weights with non-zero biases and BatchNorm
+    statistics, as trained weights have."""
+    return reference_cnn.seed_affine(reference_cnn.synthetic_tensors(seed),
+                                     seed + 1)
 
 
 def test_banded_kernels_match_plain(cuda, models):
@@ -58,6 +70,45 @@ def test_banded_kernels_match_plain(cuda, models):
     moves = banded_cuda.backtrace_moves(got[0], got[1], got[2], args[3])
     ref = banded_cuda.backtrace_moves_plain(got[0], got[1], got[2], args[3])
     assert torch.equal(moves, ref)
+
+
+def test_general_fill_matches_plain(cuda, models):
+    """Kernel E on a fit-stdv pore model (stdvs 0.10 to 0.18 per k-mer):
+    bitwise equal to its twin, and the chase agrees on its trace."""
+    fit = dataclasses.replace(models, pore_model=synthetic_model_table(9, 1))
+    arrays, static = _fill_inputs(fit, "general_fill_inputs")
+    assert static is None
+    args = [torch.from_numpy(a).to(cuda) for a in arrays]
+    got = banded_cuda.banded_fill_general(*args)
+    want = banded_cuda.banded_fill_general_plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):     # -fmad=false: bitwise equal
+        assert torch.equal(g, w)
+    moves = banded_cuda.backtrace_moves(got[0], got[1], got[2], args[5])
+    ref = banded_cuda.backtrace_moves_plain(got[0], got[1], got[2], args[5])
+    assert torch.equal(moves, ref)
+
+
+def test_gru_encoder_matches_plain(cuda):
+    """Kernel F within the JAX contract's 2e-5 of its twin, padded tails
+    included; rows made only of the code q=128 (dequantised to 0.0 by IEEE
+    division) are masked at every step by both, so they stay exactly 0."""
+    rng = np.random.default_rng(11)
+    n, t = 8192, 20
+    xq = np.clip(rng.normal(128, 30, (n, t)), 1, 255).astype(np.uint8)
+    xq[np.arange(t)[None, :] >= rng.integers(0, t + 1, n)[:, None]] = 0
+    xq[rng.random((n, t)) < 0.02] = 128
+    xq[:64] = 128
+    model = reference_cnn.params_from_tensors(
+        reference_cnn.ReferenceDetectCNN(), _reference_tensors(7))
+    w = model.gru.packed().detach().to(cuda)
+    xq = torch.from_numpy(xq).to(cuda)
+    got = gru_cuda.gru_encoder(xq, w)
+    want = gru_cuda.gru_encoder_plain(xq, w)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 2e-5
+    assert torch.equal(got[:64], torch.zeros_like(got[:64]))
+    assert torch.equal(want[:64], got[:64])
 
 
 def test_viterbi_kernels_match_plain(cuda):
@@ -104,5 +155,25 @@ def test_detect_cuda_matches_cpu(cuda, models):
     for rid in cpu:
         np.testing.assert_array_equal(cpu[rid].ref_coords, gpu[rid].ref_coords)
         # bf16 convolutions round differently in oneDNN and cuDNN
+        np.testing.assert_allclose(cpu[rid].brdu_prob, gpu[rid].brdu_prob,
+                                   atol=0.05)
+
+
+def test_reference_detect_cuda_matches_cpu(cuda, models):
+    """The reference topology (seeded weights and biases) through detect on
+    CUDA (kernels A-D and F) and on the CPU: positions equal, probabilities
+    within the bf16 spread of cuDNN against oneDNN."""
+    from dnascent_tpu_torch.pipeline.detect import detect_reads
+
+    model = reference_cnn.params_from_tensors(
+        reference_cnn.ReferenceDetectCNN(), _reference_tensors(0))
+    runs = []
+    for dev in ("cpu", cuda):
+        src = SimulatedSource(models, DNA_R10, n_reads=3, length=1200, seed=4)
+        runs.append(dict(detect_reads(src, models, model.to(dev), device=dev)))
+    cpu, gpu = runs
+    assert cpu.keys() == gpu.keys() and cpu
+    for rid in cpu:
+        np.testing.assert_array_equal(cpu[rid].ref_coords, gpu[rid].ref_coords)
         np.testing.assert_allclose(cpu[rid].brdu_prob, gpu[rid].brdu_prob,
                                    atol=0.05)

@@ -30,8 +30,8 @@ import dnascent_tpu_torch
 import dnascent_tpu_torch.cli, dnascent_tpu_torch.__main__
 from dnascent_tpu_torch.pipeline import detect, eventalign, prep
 from dnascent_tpu_torch.io import writers
-from dnascent_tpu_torch.models import cnn
-from dnascent_tpu_torch.ops import banded_cuda, viterbi_cuda
+from dnascent_tpu_torch.models import cnn, reference_cnn
+from dnascent_tpu_torch.ops import banded_cuda, gru_cuda, viterbi_cuda
 rng = np.random.default_rng(0)
 ev = torch.from_numpy(rng.normal(0, 1, (2, 60)).astype(np.float32))
 mu = torch.from_numpy(rng.normal(0, 1, (2, 40)).astype(np.float32))
@@ -40,6 +40,17 @@ tp, rp, be, bs = banded_cuda.banded_fill_lean(ev, mu, n(60, 50), n(40, 35),
                                               inv_sigma=7.0, lp_const=0.5)
 mv = banded_cuda.backtrace_moves(tp, rp, be, n(40, 35))
 assert mv.shape[1] == 2 and torch.isfinite(bs).all()
+inv = torch.full_like(mu, 7.0)
+out = banded_cuda.banded_fill_general(ev, mu, inv, torch.log(inv) - 0.92,
+                                      n(60, 50), n(40, 35))
+assert torch.isfinite(out[3]).all()
+model = reference_cnn.params_from_tensors(
+    reference_cnn.ReferenceDetectCNN(), reference_cnn.synthetic_tensors(0))
+sig = torch.from_numpy(rng.integers(0, 256, (1, 32, 20)).astype(np.uint8))
+idx = torch.ones((1, 32), dtype=torch.int64)
+with torch.no_grad():
+    probs = model(idx, idx, sig)
+assert probs.shape == (1, 32, 3) and torch.isfinite(probs).all()
 assert dnascent_tpu_torch.cli.main(["--version"]) == 0
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("jax", "jaxlib", "flax", "optax"))
@@ -78,13 +89,11 @@ def test_cli_refuses_unported_features(tmp_path, capsys):
     assert not list(tmp_path.iterdir())
     assert cli.main(["align"]) == 1
     assert cli.main(["detect", *base[1:], "-o", "o.txt"]) == 1
-    # weights for the reference topology (kernel F's model) are refused
-    # before any input is read
-    ref_npz = str(tmp_path / "ref.npz")
-    np.savez(ref_npz, **{"gru0/kernel": np.zeros((2, 3), np.float32)})
-    with pytest.raises(SystemExit, match="Not ported"):
+    # --model is ported: a missing SavedModel directory is an input error,
+    # raised before any input is read
+    with pytest.raises(SystemExit, match="not found"):
         cli.main(base + ["-o", str(tmp_path / "o.detect"), "--device", "cpu",
-                         "--cnn-weights", ref_npz])
+                         "--model", str(tmp_path / "no_such_model")])
 
 
 def test_cli_detect_runs_with_untrained_weights(tmp_path, models):

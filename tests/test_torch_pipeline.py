@@ -33,29 +33,31 @@ def dataset(tmp_path_factory, models):
 
 
 @pytest.fixture(scope="module")
-def prepped(dataset, models):
-    """The same records through the JAX prep and the port's prep (CPU)."""
-    import torch
+def records(dataset):
     from dnascent_tpu.io.fasta import import_reference
     from dnascent_tpu.io.index_io import parse_index
-    from dnascent_tpu.pipeline import prep as jprep
     from dnascent_tpu.pipeline.source import BamSignalSource
-    from dnascent_tpu_torch.pipeline import prep as tprep
 
-    torch.set_num_threads(2)
     recs = list(BamSignalSource(dataset.bam,
                                 import_reference(dataset.reference_fa),
                                 parse_index(dataset.index), min_length=1000))
     assert len(recs) == 4
-    return (jprep.prepare_reads(recs, models, DNA_R10),
-            tprep.prepare_reads(recs, models, DNA_R10, device="cpu"))
+    return recs
 
 
-def test_prepare_reads_matches_jax(prepped):
-    """event_alignment and QC exact; shift/scale/events-per-base within
-    rtol 1e-6 (equal on this dataset: the Theil-Sen median is the same
-    order statistic over the same f32 arithmetic)."""
-    jax_p, port_p = prepped
+@pytest.fixture(scope="module")
+def prepped(records, models):
+    """The same records through the JAX prep and the port's prep (CPU)."""
+    import torch
+    from dnascent_tpu.pipeline import prep as jprep
+    from dnascent_tpu_torch.pipeline import prep as tprep
+
+    torch.set_num_threads(2)
+    return (jprep.prepare_reads(records, models, DNA_R10),
+            tprep.prepare_reads(records, models, DNA_R10, device="cpu"))
+
+
+def _assert_prep_equal(jax_p, port_p):
     for a, b in zip(jax_p, port_p):
         assert a.record.read_id == b.record.read_id
         assert a.qc_fail_reason == b.qc_fail_reason
@@ -63,6 +65,38 @@ def test_prepare_reads_matches_jax(prepped):
         np.testing.assert_allclose([b.shift, b.scale, b.events_per_base],
                                    [a.shift, a.scale, a.events_per_base],
                                    rtol=1e-6)
+
+
+def test_prepare_reads_matches_jax(prepped):
+    """event_alignment and QC exact; shift/scale/events-per-base within
+    rtol 1e-6 (equal on this dataset: the Theil-Sen median is the same
+    order statistic over the same f32 arithmetic)."""
+    _assert_prep_equal(*prepped)
+
+
+def test_prepare_reads_fit_stdv_matches_jax(records, models, monkeypatch):
+    """A pore model whose stdv varies per k-mer (the static model's means,
+    stdvs 0.10 to 0.18) takes the general fill, kernel E's twin, and never
+    the static one.  The JAX prep runs its XLA scan fill on the CPU; the
+    same fields are held exact (measured: no rounding-tie flip moved an
+    alignment on this dataset)."""
+    import dataclasses
+    import torch
+    from dnascent_tpu.io.poremodel import synthetic_model_table
+    from dnascent_tpu.pipeline import prep as jprep
+    from dnascent_tpu_torch.pipeline import prep as tprep
+
+    fit = dataclasses.replace(models, pore_model=synthetic_model_table(9, 1))
+    assert tprep.static_stdv_scalars(fit.pore_model) is None
+
+    def static_fill(*args, **kw):
+        raise AssertionError("static-stdv fill used for a fit-stdv model")
+
+    monkeypatch.setattr(tprep.banded_cuda, "banded_fill_lean", static_fill)
+    torch.set_num_threads(2)
+    port_p = tprep.prepare_reads(records, fit, DNA_R10, device="cpu")
+    assert all(p.passed for p in port_p)
+    _assert_prep_equal(jprep.prepare_reads(records, fit, DNA_R10), port_p)
 
 
 def test_fast_eventalign_matches_jax(prepped, models):
