@@ -28,9 +28,15 @@ Phases, one line each:
      against CUDA on four 2 kb reads, then 32 reads of 10 kb on CUDA;
      kernel E must have launched and kernel A must not.
 Each path's launch counts are set to 0 just before it and read just after.
-The line before the last is the kernel table as JSON; the last line is
+The line before the last is the kernel table as JSON: per kernel its launches
+on the path that runs it (and on each path), its time and its plain twin's,
+its bound (``bound_ms``/``bound_us``: this run's bytes over the card's
+memory rate or its operations over the f32 rate, whichever is larger, named
+by ``bound_by``), ``share_of_bound`` = bound / time, and ``library_ms``
+(null: no PyTorch call computes these functions).  The last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase raises, so the script
-exits non-zero without that line, as it does without CUDA.
+exits non-zero without that line, as it does without CUDA.  The script
+imports nothing of jax or of the JAX package ``dnascent_tpu``.
 """
 
 import dataclasses
@@ -41,8 +47,9 @@ import sys
 import tempfile
 import time
 
-# the port never uses jax; make any accidental import fail loudly
-for _mod in ("jax", "flax", "optax"):
+# the port never uses jax or the JAX package; make any accidental import
+# fail loudly
+for _mod in ("jax", "flax", "optax", "dnascent_tpu"):
     sys.modules[_mod] = None
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -58,6 +65,23 @@ SEED = 0
 PROB_ATOL_CPU = 0.02
 REF_PROB_ATOL_CPU = 0.05
 GRU_ATOL = 2e-5
+# published peaks of one H100 SXM (NVIDIA's data sheet, at 700 W): memory
+# rate and float32 rate outside the tensor cores (every kernel here is f32
+# or integer work); a fused multiply-add counts as two operations
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_OPS_PER_S = 67e12
+# operations a cell of each kernel does on its inputs, counted from the
+# sources: A x-mu, t*t, h_c*, four adds, the skip add, two maxes; E the
+# emission's two multiplies and two adds plus the same six; C the emission
+# (5), insertion (4), match (8), deletion chain (7) and pointer (2) updates;
+# F one multiply-add per weight of the two GRU cells (816 + 1536) a live step
+OPS_PER_CELL = {"banded_fill": 10, "banded_fill_general": 12,
+                "viterbi_fill": 26, "gru_encoder": 2 * 2352}
+# no single PyTorch call computes any of these functions (library_ms null):
+# A, B, C, D and E are dynamic programs and walks that emit trace codes; for
+# F, cuDNN's GRU drops only a padded tail, while F masks steps of the code
+# q=128 anywhere in the sequence
+LIBRARY_MS = None
 
 
 def fail(msg: str):
@@ -95,6 +119,21 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def tensor_bytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: bytes that must move (each input
+    read once, each output written once) over the memory rate, or
+    operations over the f32 rate, whichever is larger."""
+    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+    return dict(bytes=int(nbytes), ops=int(ops),
+                bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations")
+
+
 def compare(torch, name, kernel, plain, reps, shape, atol=0.0):
     """Launch ``kernel`` once, time it over ``reps`` more launches, run its
     plain twin once (host clock: a Python loop of many small launches) and
@@ -123,7 +162,7 @@ def compare(torch, name, kernel, plain, reps, shape, atol=0.0):
 def fit_stdv_models(models):
     """The model set with a fit-stdv pore model: the static model's means,
     stdvs 0.10 to 0.18 varying per k-mer."""
-    from dnascent_tpu.io.poremodel import synthetic_model_table
+    from dnascent_tpu_torch.io.poremodel import synthetic_model_table
     return dataclasses.replace(
         models, pore_model=synthetic_model_table(models.kmer_len, seed=1))
 
@@ -140,7 +179,7 @@ def reference_model(dev):
     """The reference topology with seeded synthetic weights, written as a
     SavedModel directory and read back through the port's loader (the one
     ``detect --model`` uses)."""
-    from dnascent_tpu.testing.tf_bundle_writer import write_savedmodel_dir
+    from dnascent_tpu_torch.testing.tf_bundle_writer import write_savedmodel_dir
     from dnascent_tpu_torch.models import reference_cnn
     with tempfile.TemporaryDirectory() as tmp:
         model_dir = os.path.join(tmp, "detect_model")
@@ -149,8 +188,8 @@ def reference_model(dev):
 
 
 def phase1_kernels(torch, np, models, dev):
-    from dnascent_tpu.config import DNA_R10
-    from dnascent_tpu.pipeline.source import SimulatedSource
+    from dnascent_tpu_torch.config import DNA_R10
+    from dnascent_tpu_torch.pipeline.source import SimulatedSource
     from dnascent_tpu_torch.ops import (banded_cuda, viterbi as tvit,
                                         viterbi_cuda)
     from dnascent_tpu_torch.pipeline import prep
@@ -170,12 +209,18 @@ def phase1_kernels(torch, np, models, dev):
         lambda: banded_cuda.banded_fill_lean(*fill_args, **kw),
         lambda: banded_cuda.banded_fill_plain(*fill_args, **kw), 10,
         list(fill_args[0].shape) + [fill_args[1].shape[1]])
+    rows["banded_fill"].update(fill_bound(fill_args, got, "banded_fill"))
 
     chase = (got[0], got[1], got[2], fill_args[3])
-    _, rows["banded_chase"] = compare(
+    moves, rows["banded_chase"] = compare(
         torch, "backtrace chase", lambda: banded_cuda.backtrace_moves(*chase),
         lambda: banded_cuda.backtrace_moves_plain(*chase), 10,
         list(got[0].shape))
+    # the walk reads one trace byte a move (a non-PAD code of its output)
+    codes = torch.stack([(moves >> (2 * j)) & 3 for j in range(4)])
+    n_moves = int((codes != 3).sum())
+    rows["banded_chase"].update(bound(
+        tensor_bytes(got[1], got[2], fill_args[3], moves) + n_moves, 0))
 
     rng = np.random.default_rng(SEED + 7)
     W, T, N = 2048, 192, 48
@@ -197,13 +242,21 @@ def phase1_kernels(torch, np, models, dev):
     got, rows["viterbi_fill"] = compare(
         torch, "Viterbi fill", lambda: viterbi_cuda.viterbi_fill_codes(*vargs),
         lambda: viterbi_cuda.viterbi_fill_plain(*vargs), 10, [T, N, W])
+    # live cells: observations before each window's count, states inside it
+    live = float((n_obs.double() * n_st.double()).sum())
+    rows["viterbi_fill"].update(bound(
+        tensor_bytes(*vargs[:9], *got),
+        live * OPS_PER_CELL["viterbi_fill"]))
 
     _, kind0 = tvit.terminate(*got[1:], n_st, eM2MorD, logs[2])
     bargs = (got[0], kind0, n_obs, n_st, T + N)
-    _, rows["viterbi_backtrace"] = compare(
+    path, rows["viterbi_backtrace"] = compare(
         torch, "Viterbi backtrace",
         lambda: viterbi_cuda.viterbi_backtrace(*bargs),
         lambda: viterbi_cuda.viterbi_backtrace_plain(*bargs), 10, [T, N, W])
+    # the walk reads one code byte a step of each window's path
+    rows["viterbi_backtrace"].update(bound(
+        tensor_bytes(kind0, n_obs, n_st, *path) + int(path[1].sum()), 0))
 
     rows["banded_fill_general"] = phase1_general_fill(torch, models, dev)
     rows["gru_encoder"] = phase1_gru(torch, np, dev)
@@ -213,8 +266,8 @@ def phase1_kernels(torch, np, models, dev):
 def phase1_general_fill(torch, models, dev):
     """Kernel E on a fit-stdv model, bitwise against its twin at A's shape,
     32 reads of 10 kb."""
-    from dnascent_tpu.config import DNA_R10
-    from dnascent_tpu.pipeline.source import SimulatedSource
+    from dnascent_tpu_torch.config import DNA_R10
+    from dnascent_tpu_torch.pipeline.source import SimulatedSource
     from dnascent_tpu_torch.ops import banded_cuda
     from dnascent_tpu_torch.pipeline import prep
 
@@ -225,12 +278,23 @@ def phase1_general_fill(torch, models, dev):
              if p.passed]
     args = [torch.from_numpy(a).to(dev)
             for a in prep.general_fill_inputs(group, fit)]
-    _, row = compare(
+    got, row = compare(
         torch, "per-k-mer-stdv fill",
         lambda: banded_cuda.banded_fill_general(*args),
         lambda: banded_cuda.banded_fill_general_plain(*args), 10,
         list(args[0].shape) + [args[1].shape[1]])
+    row.update(fill_bound(args, got, "banded_fill_general"))
     return row
+
+
+def fill_bound(args, outs, name):
+    """Kernel A's or E's bound: its input planes and outputs once, and the
+    band cells of each read's own E+K bands (the kernel fills a shorter
+    read's tail too; that is not counted)."""
+    n_ev, n_km = args[-2], args[-1]
+    W = outs[0].shape[2]
+    cells = float((n_ev.double() + n_km.double()).sum()) * W
+    return bound(tensor_bytes(*args, *outs), cells * OPS_PER_CELL[name])
 
 
 def phase1_gru(torch, np, dev):
@@ -258,6 +322,9 @@ def phase1_gru(torch, np, dev):
         atol=GRU_ATOL)
     if bool((got[:1024] != 0).any()):
         fail("GRU encoder: a step of the code q=128 was not masked")
+    live = float(((xq != 0) & (xq != 128)).sum())
+    row.update(bound(tensor_bytes(xq, w, got),
+                     live * OPS_PER_CELL["gru_encoder"]))
     return row
 
 
@@ -265,8 +332,8 @@ def cpu_agreement(torch, np, models, model, dev, tol):
     """Four 2 kb reads through ``detect_reads`` on the CPU and on CUDA with
     the same weights: read sets and positions equal, probabilities within
     ``tol``."""
-    from dnascent_tpu.config import DNA_R10
-    from dnascent_tpu.pipeline.source import SimulatedSource
+    from dnascent_tpu_torch.config import DNA_R10
+    from dnascent_tpu_torch.pipeline.source import SimulatedSource
     from dnascent_tpu_torch.pipeline.detect import detect_reads
 
     runs = []
@@ -299,8 +366,8 @@ def drive(torch, np, models, model, dev, counters, required, n_reads=64,
     """One path: ``n_reads`` reads of ``length`` at batch 32 through
     ``detect_reads`` on CUDA, written as ``.detect``; every kernel named in
     ``required`` must have launched in this run, none in ``absent``."""
-    from dnascent_tpu.config import DNA_R10
-    from dnascent_tpu.pipeline.source import SimulatedSource
+    from dnascent_tpu_torch.config import DNA_R10
+    from dnascent_tpu_torch.pipeline.source import SimulatedSource
     from dnascent_tpu_torch.io.writers import DetectHRWriter, detect_header
     from dnascent_tpu_torch.pipeline.detect import DetectStats, detect_reads
 
@@ -361,9 +428,8 @@ def main() -> int:
         fail("torch.cuda.is_available() is false")
     sys.path.insert(0, ROOT)
     import numpy as np
-    import dnascent_tpu_torch  # noqa: F401  (sets DNASCENT_TPU_NO_CACHE)
-    from dnascent_tpu.config import DNA_R10
-    from dnascent_tpu.io.poremodel import synthetic_model_set
+    from dnascent_tpu_torch.config import DNA_R10
+    from dnascent_tpu_torch.io.poremodel import synthetic_model_set
     from dnascent_tpu_torch.models import cnn
     from dnascent_tpu_torch.ops import (banded_cuda, cuda_lib, gru_cuda,
                                         viterbi_cuda)
@@ -441,12 +507,21 @@ def main() -> int:
         "gru_encoder": ("dnascent_tpu_torch/csrc/gru_encoder.cu",
                         "dnascent_tpu/models/reference_cnn.py:171", p4),
     }
-    kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
-                    launches=path["launches"][name],
-                    max_abs_err=rows[name]["max_abs_err"],
-                    ms=rows[name]["ms"], plain_ms=rows[name]["plain_ms"],
-                    shape=rows[name]["shape"])
-               for name, (src, rep, path) in meta.items()]
+    paths = {"phase3": p3, "phase4": p4, "phase5": p5}
+    kernels = []
+    for name, (src, rep, path) in meta.items():
+        row = rows[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=src, replaces=rep,
+            launches=path["launches"][name],
+            launches_by_path={k: v["launches"][name]
+                              for k, v in paths.items()},
+            max_abs_err=row["max_abs_err"], ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_us=row["bound_ms"] * 1e3, bound_by=row["bound_by"],
+            share_of_bound=row["bound_ms"] / row["ms"],
+            library_ms=LIBRARY_MS, bytes=row["bytes"], ops=row["ops"],
+            shape=row["shape"]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

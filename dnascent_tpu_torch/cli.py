@@ -133,16 +133,16 @@ def main_detect(argv) -> int:
         return 1
 
     import torch
-    from dnascent_tpu.config import DNA_R10
-    from dnascent_tpu.io.fasta import import_reference
-    from dnascent_tpu.io.index_io import parse_index
-    from dnascent_tpu.io.poremodel import load_model_set
-    from dnascent_tpu.pipeline.source import BamSignalSource
-    from dnascent_tpu.utils.progress import ProgressBar
 
     from . import device as devmod
+    from .config import DNA_R10
+    from .io.fasta import import_reference
+    from .io.index_io import parse_index
+    from .io.poremodel import load_model_set
     from .io.writers import DetectHRWriter, detect_header
     from .pipeline.detect import DetectStats, detect_reads
+    from .pipeline.source import BamSignalSource
+    from .utils.progress import ProgressBar
 
     dev = devmod.resolve(a.device)
     if dev.type == "cuda":

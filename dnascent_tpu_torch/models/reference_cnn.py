@@ -274,7 +274,7 @@ def load_savedmodel(model_dir: str) -> ReferenceDetectCNN:
     """The model from a reference SavedModel directory with its
     ``variables.data-*`` shards present; the architecture is checked against
     the shipped manifest first."""
-    from dnascent_tpu.models import cnn_import
+    from . import cnn_import
     problems = cnn_import.check_savedmodel_architecture(model_dir)
     if problems:
         raise ValueError("SavedModel does not match the reference detect "

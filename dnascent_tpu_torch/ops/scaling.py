@@ -1,5 +1,7 @@
-"""Theil-Sen scaling refinement as torch ops (port of the upload-lean pair
-in ``dnascent_tpu/ops/scaling.py``: ``theilsen_pregather`` on the host,
+"""Signal scaling: the quantile estimate on the host (a copy of
+``dnascent_tpu/ops/reference.py``'s ``estimate_scaling_quantiles``) and the
+Theil-Sen refinement as torch ops (port of the upload-lean pair in
+``dnascent_tpu/ops/scaling.py``: ``theilsen_pregather`` on the host,
 ``theilsen_refine_pregathered`` on the device).
 
 The TPU version picks the exact median with a sort-free bitwise search
@@ -10,6 +12,39 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..config import ScalingParams
+
+
+def quantile_medians(data: np.ndarray, nquantiles: int) -> np.ndarray:
+    """quantileMedians (event_handling.cpp:451-475)."""
+    s = np.sort(np.asarray(data, dtype=np.float64))
+    n = s.shape[0] // nquantiles
+    i = np.arange(nquantiles)
+    idx = (i * n + (i + 1) * n) // 2
+    return s[idx]
+
+
+def linear_regression(x: np.ndarray, y: np.ndarray) -> tuple[float, float]:
+    """Least squares slope/intercept (event_handling.cpp:478-507)."""
+    x = np.asarray(x, dtype=np.float64)
+    y = np.asarray(y, dtype=np.float64)
+    n = x.shape[0]
+    sum_x = x.sum(); sum_x2 = (x * x).sum(); sum_y = y.sum(); sum_xy = (x * y).sum()
+    slope = (n * sum_xy - sum_x * sum_y) / (n * sum_x2 - sum_x * sum_x)
+    intercept = (sum_y - slope * sum_x) / n
+    return float(slope), float(intercept)
+
+
+def estimate_scaling_quantiles(event_means: np.ndarray, model_means: np.ndarray,
+                               params: ScalingParams = ScalingParams()) -> tuple[float, float]:
+    """Quantile scaling: returns (shift, scale)
+    (event_handling.cpp:510-541).  ``model_means`` are the pore-model means of
+    the *reference* k-mer ranks."""
+    sq = quantile_medians(event_means, params.n_quantiles)
+    mq = quantile_medians(model_means, params.n_quantiles)
+    slope, intercept = linear_regression(mq, sq)
+    return intercept, slope  # shift, scale
 
 
 def masked_median_lower(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

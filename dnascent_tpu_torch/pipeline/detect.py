@@ -24,16 +24,15 @@ from typing import Iterable, Optional, Union
 import numpy as np
 import torch
 
-from dnascent_tpu.config import DNA_R10, SubstrateConfig
-from dnascent_tpu.io.poremodel import PoreModelSet
-from dnascent_tpu.pipeline.source import ReadRecord
-from dnascent_tpu.utils.seqtools import _COMP_TABLE as _COMP_U8
-
 from .. import device as devmod
+from ..config import DNA_R10, SubstrateConfig
+from ..io.poremodel import PoreModelSet
 from ..models import cnn as cnn_mod
 from ..models.reference_cnn import ReferenceDetectCNN
+from ..utils.seqtools import _COMP_TABLE as _COMP_U8
 from .eventalign import AlignedPositions, run_eventalign
 from .prep import PreparedRead, prepare_reads
+from .source import ReadRecord
 
 # positions per CNN call before halo chunking starts
 CNN_CHUNK_POSITIONS = 32768

@@ -19,15 +19,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from dnascent_tpu import native
-from dnascent_tpu.config import DNA_R10, SubstrateConfig
-from dnascent_tpu.io.poremodel import PoreModelSet
-from dnascent_tpu.utils.seqtools import (core_index_from_codes, encode_bases,
-                                         residual_index_from_codes)
-
-from .. import device as devmod
+from .. import device as devmod, native
+from ..config import DNA_R10, SubstrateConfig
+from ..io.poremodel import PoreModelSet
 from ..models.cnn import RAWDEPTH, SIG_QUANT_LO, SIG_QUANT_SCALE
 from ..ops import seqcodes, viterbi as vit, viterbi_cuda
+from ..utils.seqtools import (core_index_from_codes, encode_bases,
+                              residual_index_from_codes)
 from .prep import PreparedRead
 
 HMM_KEY = ("external_D2D", "external_D2M", "external_I2M", "external_M2D",

@@ -18,15 +18,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from dnascent_tpu import native
-from dnascent_tpu.config import DNA_R10, SubstrateConfig
-from dnascent_tpu.io.poremodel import PoreModelSet
-from dnascent_tpu.ops import reference as refops
-from dnascent_tpu.pipeline.source import ReadRecord
-from dnascent_tpu.utils.seqtools import kmer_ranks
-
-from .. import device as devmod
+from .. import device as devmod, native
+from ..config import DNA_R10, SubstrateConfig
+from ..io.poremodel import PoreModelSet
 from ..ops import banded, banded_cuda, scaling
+from ..utils.seqtools import kmer_ranks
+from .source import ReadRecord
 
 MAX_FILL_B = 32          # reads per fill launch
 BUCKET_STEP = 4096       # reads of similar length share a fill launch
@@ -103,7 +100,7 @@ def quantile_scaled_reads(records: list[ReadRecord], models: PoreModelSet,
         else:
             # undefined k-mers take the A-substituted rank (data_IO.cpp:131)
             safe_rr = np.where(rr < 0, 0, rr)
-            p.shift, p.scale = refops.estimate_scaling_quantiles(
+            p.shift, p.scale = scaling.estimate_scaling_quantiles(
                 mean, models.pore_model[safe_rr, 0].astype(np.float64),
                 cfg.scaling)
         prepped.append(p)

@@ -1,0 +1,1 @@
+"""testing helpers of the PyTorch port (see the matching dnascent_tpu module)."""

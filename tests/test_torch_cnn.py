@@ -7,7 +7,6 @@ import jax
 import jax.numpy as jnp
 import torch
 
-import dnascent_tpu_torch  # noqa: F401  (sets DNASCENT_TPU_NO_CACHE)
 from dnascent_tpu.models import cnn as jcnn
 from dnascent_tpu_torch.models import cnn as tcnn
 

@@ -15,10 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-import dnascent_tpu_torch  # noqa: F401  (sets DNASCENT_TPU_NO_CACHE)
-from dnascent_tpu.config import DNA_R10
-from dnascent_tpu.io.poremodel import synthetic_model_set, synthetic_model_table
-from dnascent_tpu.pipeline.source import SimulatedSource
+from dnascent_tpu_torch.config import DNA_R10
+from dnascent_tpu_torch.io.poremodel import synthetic_model_set, synthetic_model_table
+from dnascent_tpu_torch.pipeline.source import SimulatedSource
 from dnascent_tpu_torch.models import reference_cnn
 from dnascent_tpu_torch.ops import (banded_cuda, gru_cuda, viterbi as tvit,
                                     viterbi_cuda)
@@ -41,14 +40,72 @@ def models():
     return synthetic_model_set(DNA_R10)
 
 
-def _fill_inputs(models, build="fill_inputs", n_reads=4, length=800):
+def _groups(models, lengths, seed=21):
+    """One fill group of simulated reads of the given lengths, all passing
+    quantile scaling."""
     from dnascent_tpu_torch.pipeline import prep
-    recs = list(SimulatedSource(models, DNA_R10, n_reads=n_reads,
-                                length=length, seed=21))
+    recs = [next(iter(SimulatedSource(models, DNA_R10, n_reads=1, length=n,
+                                      seed=seed + i)))
+            for i, n in enumerate(lengths)]
     group = [p for p in prep.quantile_scaled_reads(recs, models, DNA_R10)
              if p.passed]
+    assert len(group) == len(lengths)
+    return group
+
+
+def _fill_inputs(models, build="fill_inputs", n_reads=4, length=800):
+    from dnascent_tpu_torch.pipeline import prep
+    group = _groups(models, [length] * n_reads)
     return getattr(prep, build)(group, models), prep.static_stdv_scalars(
         models.pore_model)
+
+
+def _fill_and_chase_match(cuda, models, lengths, general):
+    """Kernel A (or E on a fit-stdv model) and kernel B on one group, each
+    bitwise against its plain twin on the same CUDA tensors."""
+    from dnascent_tpu_torch.pipeline import prep
+    if general:
+        models = dataclasses.replace(models,
+                                     pore_model=synthetic_model_table(9, 1))
+    group = _groups(models, lengths)
+    if general:
+        args = [torch.from_numpy(a).to(cuda)
+                for a in prep.general_fill_inputs(group, models)]
+        kernel, plain, kw = (banded_cuda.banded_fill_general,
+                             banded_cuda.banded_fill_general_plain, {})
+    else:
+        inv_sigma, lp_const = prep.static_stdv_scalars(models.pore_model)
+        args = [torch.from_numpy(a).to(cuda)
+                for a in prep.fill_inputs(group, models)]
+        kernel, plain = (banded_cuda.banded_fill_lean,
+                         banded_cuda.banded_fill_plain)
+        kw = dict(inv_sigma=inv_sigma, lp_const=lp_const)
+    got = kernel(*args, **kw)
+    want = plain(*args, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):     # -fmad=false: bitwise equal
+        assert torch.equal(g, w)
+    chase = (got[0], got[1], got[2], args[-1])
+    moves = banded_cuda.backtrace_moves(*chase)
+    ref = banded_cuda.backtrace_moves_plain(*chase)
+    torch.cuda.synchronize()
+    assert torch.equal(moves, ref)
+
+
+# the cases the fill's event/k-mer rings and the chase's staged chunks can
+# get wrong: reads of one launch differing in length by 4x (a short read
+# runs through most bands past its end, and its chase emits mostly PAD
+# rows), a read with fewer k-mers than half the band (n_kmers < W/2), and
+# the main path's 10 kb reads (twins take about 40 s each at that length)
+_BANDED_CASES = {"lengths_4x": [600, 2400, 1200, 2400, 900, 600],
+               "short_read": [40, 1500, 70],
+               "main_path_10kb": [10000] * 8}
+
+
+@pytest.mark.parametrize("general", [False, True], ids=["A", "E"])
+@pytest.mark.parametrize("case", sorted(_BANDED_CASES))
+def test_banded_cases_match_plain(cuda, models, case, general):
+    _fill_and_chase_match(cuda, models, _BANDED_CASES[case], general)
 
 
 def _reference_tensors(seed):

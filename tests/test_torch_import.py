@@ -1,5 +1,6 @@
-"""PyTorch port: it imports and runs without jax, and its CLI refuses what
-is not ported rather than ignoring it."""
+"""PyTorch port: it imports and runs without jax and without the JAX
+package ``dnascent_tpu``, and its CLI refuses what is not ported rather
+than ignoring it."""
 
 import os
 import re
@@ -9,19 +10,24 @@ import sys
 import numpy as np
 import pytest
 
-import dnascent_tpu_torch  # noqa: F401  (sets DNASCENT_TPU_NO_CACHE)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "dnascent_tpu_torch")
 
-# Run in a fresh interpreter: this test process already imported jax
-# (tests/conftest.py).  A meta-path hook refuses jax/flax/optax, so any
-# import of them fails; afterwards none may sit in sys.modules.
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "dnascent_tpu")
+
+# Run in a fresh interpreter: this test process already imported jax and
+# dnascent_tpu (tests/conftest.py).  A meta-path hook refuses jax, flax,
+# optax and the JAX package with every submodule, so any import of them
+# fails; the port's CPU path runs (host layer, native library, kernels'
+# plain twins, both CNNs, a detect run); afterwards none may sit in
+# sys.modules.
 _NO_JAX = r"""
 import sys
+BLOCKED = %r
 class _Block:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax"):
+        if name.split(".")[0] in BLOCKED:
             raise ImportError(f"{name} is blocked")
         return None
 sys.meta_path.insert(0, _Block())
@@ -52,29 +58,51 @@ with torch.no_grad():
     probs = model(idx, idx, sig)
 assert probs.shape == (1, 32, 3) and torch.isfinite(probs).all()
 assert dnascent_tpu_torch.cli.main(["--version"]) == 0
-bad = sorted(m for m in sys.modules if m.split(".")[0] in
-             ("jax", "jaxlib", "flax", "optax"))
+from dnascent_tpu_torch import native
+from dnascent_tpu_torch.config import DNA_R10
+from dnascent_tpu_torch.io.poremodel import synthetic_model_set
+from dnascent_tpu_torch.pipeline.source import SimulatedSource
+assert native.available()
+pms = synthetic_model_set(DNA_R10)
+small = cnn.init_untrained(cnn.DetectCNN(d_model=16, dilations=(1,)))
+out = dict(detect.detect_reads(SimulatedSource(pms, DNA_R10, n_reads=1,
+                                               length=1200, seed=3),
+                               pms, small, DNA_R10, device="cpu"))
+assert len(out) == 1 and all(d.ref_coords.size for d in out.values())
+bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not bad, bad
 print("NO_JAX_OK")
-"""
+""" % (BLOCKED,)
 
 
 def test_port_imports_and_runs_without_jax():
-    env = dict(os.environ)
-    env.pop("DNASCENT_TPU_NO_CACHE", None)   # the package must set it
+    env = dict(os.environ, OMP_NUM_THREADS="2")
     res = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=120)
+                         capture_output=True, text=True, timeout=240)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "NO_JAX_OK" in res.stdout
 
 
+def _port_sources():
+    """Every .py of the port, and chip_smoke.py."""
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, files in os.walk(PKG):
+        out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    return out
+
+
 def test_no_source_file_imports_jax():
     pat = re.compile(r"^\s*(import|from)\s+(jax|flax|optax)\b", re.M)
-    for dirpath, _, files in os.walk(PKG):
-        for f in files:
-            if f.endswith(".py"):
-                with open(os.path.join(dirpath, f)) as fh:
-                    assert not pat.search(fh.read()), f
+    for path in _port_sources():
+        with open(path) as fh:
+            assert not pat.search(fh.read()), path
+
+
+def test_no_source_file_imports_the_jax_package():
+    pat = re.compile(r"^\s*(from|import)\s+dnascent_tpu(\.|\s|$)", re.M)
+    for path in _port_sources():
+        with open(path) as fh:
+            assert not pat.search(fh.read()), path
 
 
 def test_cli_refuses_unported_features(tmp_path, capsys):

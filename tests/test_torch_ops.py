@@ -7,7 +7,6 @@ import pytest
 import jax.numpy as jnp
 import torch
 
-import dnascent_tpu_torch  # noqa: F401  (sets DNASCENT_TPU_NO_CACHE)
 from dnascent_tpu.ops import scaling as jscaling, seqcodes as jseq
 from dnascent_tpu_torch import device as devmod
 from dnascent_tpu_torch.ops import scaling as tscaling, seqcodes as tseq

@@ -11,7 +11,6 @@ import sys
 import numpy as np
 import pytest
 
-import dnascent_tpu_torch  # noqa: F401  (sets DNASCENT_TPU_NO_CACHE)
 from dnascent_tpu.config import DNA_R10
 from dnascent_tpu.testing.dataset import build_dataset
 

@@ -12,7 +12,6 @@ import jax
 import jax.numpy as jnp
 import torch
 
-import dnascent_tpu_torch  # noqa: F401  (sets DNASCENT_TPU_NO_CACHE)
 from dnascent_tpu.models import reference_cnn as rc
 from dnascent_tpu.models.cnn import SIG_QUANT_LO, SIG_QUANT_SCALE
 from dnascent_tpu_torch.models import reference_cnn as trc

@@ -9,7 +9,6 @@ import pytest
 import jax.numpy as jnp
 import torch
 
-import dnascent_tpu_torch  # noqa: F401  (sets DNASCENT_TPU_NO_CACHE)
 from dnascent_tpu.config import DNA_R10
 from dnascent_tpu_torch.ops import viterbi as tvit, viterbi_cuda
 from dnascent_tpu_torch.pipeline.eventalign import HMM_KEY
