@@ -12,28 +12,37 @@ Phases, one line each:
      times: the static and the per-k-mer-stdv fills and the chase at the
      main path's 32 reads of 10 kb; Viterbi fill and backtrace at 2048
      windows, T=192, N=48; the GRU encoder at 2^19 rows of 20 samples
-     (padded tails, rows of the code q=128);
+     (padded tails, rows of the code q=128), beside its library yardstick
+     (``gru.gru_encoder_library``: ``torch.nn.GRU`` over each row's live
+     steps, TF32 off), timed whole and as the bare ``nn.GRU`` call;
   2. four 2 kb reads through ``detect_reads`` on CUDA and on the CPU with
      the same DetectCNN weights: positions equal, probabilities within
      tolerance;
   3. the main path: 64 reads of 10 kb at batch 32 through ``detect_reads``
      on CUDA with the default-width DetectCNN (untrained, seeded weights),
-     written as ``.detect``; kernels A-D must have launched;
+     written as ``.detect``; kernels A-D must have launched; prints the
+     (W, T, N) of each Viterbi fill launch;
   4. the ``--model`` path: the reference CNN topology, its seeded
      synthetic weights (non-zero biases and BatchNorm statistics, as
      trained weights have) written as a SavedModel directory and read back by
      the port's loader; CPU against CUDA on four 2 kb reads, then 64 reads
      of 10 kb at batch 32 on CUDA; kernels A-D and F must have launched;
+     prints the histogram of live steps per row fed to F;
   5. the fit-stdv path: a pore model whose stdv varies per k-mer; CPU
      against CUDA on four 2 kb reads, then 32 reads of 10 kb on CUDA;
      kernel E must have launched and kernel A must not.
 Each path's launch counts are set to 0 just before it and read just after.
+The shapes of phases 3-5 (each path's C launches and F's live-step
+histogram, recorded by observers around the wrappers) show whether phase
+1's shapes stand for the path.
 The line before the last is the kernel table as JSON: per kernel its launches
 on the path that runs it (and on each path), its time and its plain twin's,
 its bound (``bound_ms``/``bound_us``: this run's bytes over the card's
-memory rate or its operations over the f32 rate, whichever is larger, named
-by ``bound_by``), ``share_of_bound`` = bound / time, and ``library_ms``
-(null: no PyTorch call computes these functions).  The last line is
+memory rate or its operations over their type's rate, f32 or, for F's
+tensor-core products, TF32, whichever is larger, named by ``bound_by``),
+``share_of_bound`` = bound / time, and ``library_ms``: the time of one
+PyTorch call computing the same function where there is one (F), else
+null, with ``library_note`` saying why.  The last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase raises, so the script
 exits non-zero without that line, as it does without CUDA.  The script
 imports nothing of jax or of the JAX package ``dnascent_tpu``.
@@ -56,32 +65,47 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 # tolerances (see PERF.md): the fills, chase and Viterbi kernels are built
 # with -fmad=false and follow their plain twins op for op, so their outputs
-# must be bitwise equal; the GRU encoder's dot products and expf/tanhf
-# differ from torch's by a few ulp, so it is held to the JAX contract's
-# 2e-5, with its masked steps (the code q=128) exactly as the twin's; the
-# CUDA-vs-CPU detect runs differ only in the bf16 CNN (cuDNN vs oneDNN),
-# and the reference topology's 40 bf16 conv layers spread further than the
-# DetectCNN's 17
+# must be bitwise equal; the GRU encoder's 3xTF32 tensor-core products and
+# __expf-based sigmoid/tanh differ from torch's by a few 1e-7, so it is held
+# to the JAX contract's 2e-5, with its masked steps (the code q=128) exactly
+# as the twin's; the CUDA-vs-CPU detect runs differ only in the bf16 CNN
+# (cuDNN vs oneDNN), and the reference topology's 40 bf16 conv layers
+# spread further than the DetectCNN's 17
 PROB_ATOL_CPU = 0.02
 REF_PROB_ATOL_CPU = 0.05
 GRU_ATOL = 2e-5
 # published peaks of one H100 SXM (NVIDIA's data sheet, at 700 W): memory
-# rate and float32 rate outside the tensor cores (every kernel here is f32
-# or integer work); a fused multiply-add counts as two operations
+# rate, float32 rate outside the tensor cores (A-E are f32 or integer work)
+# and the dense TF32 tensor-core rate (F's products); a fused multiply-add
+# counts as two operations
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+PEAK_TF32_OPS_PER_S = 495e12
 # operations a cell of each kernel does on its inputs, counted from the
 # sources: A x-mu, t*t, h_c*, four adds, the skip add, two maxes; E the
 # emission's two multiplies and two adds plus the same six; C the emission
 # (5), insertion (4), match (8), deletion chain (7) and pointer (2) updates;
-# F one multiply-add per weight of the two GRU cells (816 + 1536) a live step
+# F three TF32 multiply-adds (3xTF32) per weight of the two GRU cells' three
+# matrices (768 + 768 + 768) a live step, at the TF32 rate (its input row
+# and gate math run on the f32 pipes and are not counted)
 OPS_PER_CELL = {"banded_fill": 10, "banded_fill_general": 12,
-                "viterbi_fill": 26, "gru_encoder": 2 * 2352}
-# no single PyTorch call computes any of these functions (library_ms null):
-# A, B, C, D and E are dynamic programs and walks that emit trace codes; for
-# F, cuDNN's GRU drops only a padded tail, while F masks steps of the code
-# q=128 anywhere in the sequence
-LIBRARY_MS = None
+                "viterbi_fill": 26, "gru_encoder": 3 * 2 * 2304}
+# the kernels no single PyTorch call computes (library_ms null), and why;
+# F's library_ms is measured in phase 1
+LIBRARY_NOTES = {
+    "banded_fill": "no PyTorch call: an adaptive banded DP emitting trace "
+                   "codes and band moves",
+    "banded_chase": "no PyTorch call: a data-dependent walk of trace codes",
+    "viterbi_fill": "no PyTorch call: a max-product DP emitting argmax "
+                    "pointer codes",
+    "viterbi_backtrace": "no PyTorch call: a data-dependent walk of pointer "
+                         "codes",
+    "banded_fill_general": "no PyTorch call: kernel A's DP with per-k-mer "
+                           "emissions",
+    "gru_encoder": "torch.nn.GRU(1, 16, num_layers=2) over each row's live "
+                   "steps packed (a masked step carries the state, the same "
+                   "as deleting it): whole gru_encoder_library, TF32 off",
+}
 
 
 def fail(msg: str):
@@ -123,12 +147,12 @@ def tensor_bytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def bound(nbytes: float, ops: float) -> dict:
+def bound(nbytes: float, ops: float, ops_rate=PEAK_F32_OPS_PER_S) -> dict:
     """The least time the card could take: bytes that must move (each input
     read once, each output written once) over the memory rate, or
-    operations over the f32 rate, whichever is larger."""
+    operations over their type's rate, whichever is larger."""
     by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    by_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+    by_ops = ops / ops_rate * 1e3
     return dict(bytes=int(nbytes), ops=int(ops),
                 bound_ms=max(by_bytes, by_ops),
                 bound_by="bytes" if by_bytes >= by_ops else "operations")
@@ -193,7 +217,6 @@ def phase1_kernels(torch, np, models, dev):
     from dnascent_tpu_torch.ops import (banded_cuda, viterbi as tvit,
                                         viterbi_cuda)
     from dnascent_tpu_torch.pipeline import prep
-    from dnascent_tpu_torch.pipeline.eventalign import HMM_KEY
 
     rows = {}
     recs = list(SimulatedSource(models, DNA_R10, n_reads=32, length=10000,
@@ -222,23 +245,10 @@ def phase1_kernels(torch, np, models, dev):
     rows["banded_chase"].update(bound(
         tensor_bytes(got[1], got[2], fill_args[3], moves) + n_moves, 0))
 
-    rng = np.random.default_rng(SEED + 7)
-    W, T, N = 2048, 192, 48
-    n_states = rng.integers(30, 43, W).astype(np.int32)
-    ranks = rng.integers(0, models.pore_model.shape[0], (N, W))
-    ranks[np.arange(N)[:, None] >= n_states[None, :]] = -1
-    table = torch.from_numpy(models.pore_model.astype(np.float32)).to(dev)
-    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    mu, inv, lpc = tvit.emission_planes(t(ranks), table)
-    obs = mu[rng.integers(0, 42, T)] + torch.from_numpy(
-        rng.normal(0, 0.2, (T, W)).astype(np.float32)).to(dev)
-    obs = obs.contiguous()
-    n_obs = t(rng.integers(100, T + 1, W).astype(np.int32))
-    n_st = t(n_states)
-    hmm = tuple(getattr(DNA_R10.hmm, k) for k in HMM_KEY)
-    iM2M, eM2M, eOrIM2M, eM2MorD, logs = tvit.transition_scores(
-        t(rng.uniform(1.8, 2.6, W).astype(np.float32)), hmm)
-    vargs = (obs, mu, inv, lpc, n_obs, n_st, iM2M, eM2M, eOrIM2M, logs)
+    vargs, eM2MorD = viterbi_inputs(torch, np, models, dev)
+    T, W = vargs[0].shape
+    N = vargs[1].shape[0]
+    n_obs, n_st, logs = vargs[4], vargs[5], vargs[9]
     got, rows["viterbi_fill"] = compare(
         torch, "Viterbi fill", lambda: viterbi_cuda.viterbi_fill_codes(*vargs),
         lambda: viterbi_cuda.viterbi_fill_plain(*vargs), 10, [T, N, W])
@@ -261,6 +271,52 @@ def phase1_kernels(torch, np, models, dev):
     rows["banded_fill_general"] = phase1_general_fill(torch, models, dev)
     rows["gru_encoder"] = phase1_gru(torch, np, dev)
     return rows
+
+
+def viterbi_inputs(torch, np, models, dev):
+    """Kernel C's phase-1 inputs: 2048 seeded windows, T=192, N=48, 30 to
+    42 states and 100 to 192 observations a window.  Returns (the fill's
+    arguments, eM2MorD for termination)."""
+    from dnascent_tpu_torch.config import DNA_R10
+    from dnascent_tpu_torch.ops import viterbi as tvit
+    from dnascent_tpu_torch.pipeline.eventalign import HMM_KEY
+
+    rng = np.random.default_rng(SEED + 7)
+    W, T, N = 2048, 192, 48
+    n_states = rng.integers(30, 43, W).astype(np.int32)
+    ranks = rng.integers(0, models.pore_model.shape[0], (N, W))
+    ranks[np.arange(N)[:, None] >= n_states[None, :]] = -1
+    table = torch.from_numpy(models.pore_model.astype(np.float32)).to(dev)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    mu, inv, lpc = tvit.emission_planes(t(ranks), table)
+    obs = mu[rng.integers(0, 42, T)] + torch.from_numpy(
+        rng.normal(0, 0.2, (T, W)).astype(np.float32)).to(dev)
+    obs = obs.contiguous()
+    n_obs = t(rng.integers(100, T + 1, W).astype(np.int32))
+    hmm = tuple(getattr(DNA_R10.hmm, k) for k in HMM_KEY)
+    iM2M, eM2M, eOrIM2M, eM2MorD, logs = tvit.transition_scores(
+        t(rng.uniform(1.8, 2.6, W).astype(np.float32)), hmm)
+    return ((obs, mu, inv, lpc, n_obs, t(n_states), iM2M, eM2M, eOrIM2M,
+             logs), eM2MorD)
+
+
+def gru_inputs(torch, np, dev):
+    """Kernel F's phase-1 inputs: 2^19 rows x 20 seeded codes with padded
+    tails (0 to 20 live samples a row), code 128 sprinkled in, and 1024
+    rows made only of q=128; the reference topology's seeded weights."""
+    from dnascent_tpu_torch.models import cnn, reference_cnn
+
+    rng = np.random.default_rng(SEED + 9)
+    n, t = 1 << 19, cnn.RAWDEPTH
+    xq = np.clip(rng.normal(128, 30, (n, t)), 1, 255).astype(np.uint8)
+    counts = rng.integers(0, t + 1, n)
+    xq[np.arange(t)[None, :] >= counts[:, None]] = 0
+    xq[rng.random((n, t)) < 0.01] = 128
+    xq[:1024] = 128
+    w = reference_cnn.params_from_tensors(
+        reference_cnn.ReferenceDetectCNN(),
+        reference_tensors()).gru.packed().detach().to(dev)
+    return torch.from_numpy(xq).to(dev), w
 
 
 def phase1_general_fill(torch, models, dev):
@@ -298,24 +354,13 @@ def fill_bound(args, outs, name):
 
 
 def phase1_gru(torch, np, dev):
-    """Kernel F at 2^19 rows x 20 samples: seeded codes with padded tails
-    (0 to 20 live samples a row), code 128 sprinkled in, and 1024 rows made
-    only of q=128, whose dequantised value is 0.0 under IEEE division, so
-    every step of them is masked and their state stays exactly 0."""
-    from dnascent_tpu_torch.models import cnn, reference_cnn
-    from dnascent_tpu_torch.ops import gru_cuda
+    """Kernel F at 2^19 rows x 20 samples (``gru_inputs``); the 1024 rows
+    made only of q=128 dequantise to 0.0 under IEEE division, so every step
+    of them is masked and their state stays exactly 0."""
+    from dnascent_tpu_torch.ops import gru, gru_cuda
 
-    rng = np.random.default_rng(SEED + 9)
-    n, t = 1 << 19, cnn.RAWDEPTH
-    xq = np.clip(rng.normal(128, 30, (n, t)), 1, 255).astype(np.uint8)
-    counts = rng.integers(0, t + 1, n)
-    xq[np.arange(t)[None, :] >= counts[:, None]] = 0
-    xq[rng.random((n, t)) < 0.01] = 128
-    xq[:1024] = 128
-    xq = torch.from_numpy(xq).to(dev)
-    w = reference_cnn.params_from_tensors(
-        reference_cnn.ReferenceDetectCNN(),
-        reference_tensors()).gru.packed().detach().to(dev)
+    xq, w = gru_inputs(torch, np, dev)
+    n, t = xq.shape
     got, row = compare(
         torch, "GRU encoder", lambda: gru_cuda.gru_encoder(xq, w),
         lambda: gru_cuda.gru_encoder_plain(xq, w), 10, [n, t],
@@ -324,7 +369,22 @@ def phase1_gru(torch, np, dev):
         fail("GRU encoder: a step of the code q=128 was not masked")
     live = float(((xq != 0) & (xq != 128)).sum())
     row.update(bound(tensor_bytes(xq, w, got),
-                     live * OPS_PER_CELL["gru_encoder"]))
+                     live * OPS_PER_CELL["gru_encoder"], PEAK_TF32_OPS_PER_S))
+    # the yardstick: the same function as one library call, whole (live-step
+    # compaction, packing, nn.GRU) and as the bare nn.GRU call
+    lib_out = gru.gru_encoder_library(xq, w)
+    lib_err = float((lib_out - got).abs().max())
+    if not lib_err <= 2 * GRU_ATOL:  # each within GRU_ATOL of the twin
+        fail(f"GRU yardstick differs from kernel F by {lib_err}")
+    packed, _rows = gru.pack_live(xq)
+    module = gru.library_gru(w)
+    with torch.no_grad():
+        module(packed)
+        torch.cuda.synchronize()
+        row["library_ms"] = cuda_ms(
+            torch, lambda: gru.gru_encoder_library(xq, w), 10)
+        row["library_gru_ms"] = cuda_ms(torch, lambda: module(packed), 10)
+    row["library_max_abs_err_vs_kernel"] = lib_err
     return row
 
 
@@ -361,6 +421,51 @@ def cpu_agreement(torch, np, models, model, dev, tol):
                 tol=tol)
 
 
+class PathShapes:
+    """Records, while a path runs, the (W, T, N) of each Viterbi fill
+    launch and the histogram of live steps per row fed to the GRU encoder,
+    by wrapping the wrappers (their launch counts are untouched)."""
+
+    def __init__(self, torch):
+        from dnascent_tpu_torch.models import reference_cnn
+        from dnascent_tpu_torch.ops import gru, viterbi_cuda
+        self.fill_shapes = []
+        self.live_hist = None
+        self._patches = [(viterbi_cuda, "viterbi_fill_codes"),
+                         (reference_cnn, "gru_encoder")]
+        self._orig = [getattr(m, n) for m, n in self._patches]
+        fill, encoder = self._orig
+
+        def fill_observed(obs_T, mu, *args):
+            self.fill_shapes.append([obs_T.shape[1], obs_T.shape[0],
+                                     mu.shape[0]])
+            return fill(obs_T, mu, *args)
+
+        def encoder_observed(xq, w):
+            counts = gru.dequantise(xq)[1].sum(dim=1)
+            hist = torch.bincount(counts, minlength=xq.shape[1] + 1)
+            self.live_hist = (hist if self.live_hist is None
+                              else self.live_hist + hist)
+            return encoder(xq, w)
+
+        self._wrapped = [fill_observed, encoder_observed]
+
+    def __enter__(self):
+        for (m, n), fn in zip(self._patches, self._wrapped):
+            setattr(m, n, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for (m, n), fn in zip(self._patches, self._orig):
+            setattr(m, n, fn)
+
+    def report(self) -> dict:
+        hist = (None if self.live_hist is None
+                else self.live_hist.cpu().tolist())
+        return dict(viterbi_fill_WTN=self.fill_shapes,
+                    gru_live_steps_hist=hist)
+
+
 def drive(torch, np, models, model, dev, counters, required, n_reads=64,
           length=10000, absent=()):
     """One path: ``n_reads`` reads of ``length`` at batch 32 through
@@ -383,7 +488,7 @@ def drive(torch, np, models, model, dev, counters, required, n_reads=64,
         for c in counters.values():
             c.reset()
         t0 = time.perf_counter()
-        with DetectHRWriter(out) as w:
+        with PathShapes(torch) as shapes, DetectHRWriter(out) as w:
             w.write_header(detect_header("simulated", "simulated", "none", 1,
                                          20, 1000, compute="GPU"))
             for _rid, d in detect_reads(iter(records), models, model, DNA_R10,
@@ -419,7 +524,7 @@ def drive(torch, np, models, model, dev, counters, required, n_reads=64,
     return dict(reads=n_reads, passed=n_written, failed_qc=stats.failed,
                 called_sites=n_sites, wall_s=wall,
                 reads_per_s=n_reads / wall, peak_mem_bytes=peak,
-                launches=launches)
+                launches=launches, shapes=shapes.report())
 
 
 def main() -> int:
@@ -520,7 +625,9 @@ def main() -> int:
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_us=row["bound_ms"] * 1e3, bound_by=row["bound_by"],
             share_of_bound=row["bound_ms"] / row["ms"],
-            library_ms=LIBRARY_MS, bytes=row["bytes"], ops=row["ops"],
+            library_ms=row.get("library_ms"),
+            library_note=LIBRARY_NOTES[name], bytes=row["bytes"],
+            library_gru_ms=row.get("library_gru_ms"), ops=row["ops"],
             shape=row["shape"]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

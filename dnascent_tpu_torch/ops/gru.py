@@ -17,6 +17,10 @@ is exactly 0.0; the dequantisation ``(q - 1) / SIG_QUANT_SCALE +
 SIG_QUANT_LO`` is an IEEE f32 division here and in the kernel, because the
 code q=128 lands next to 0.0 and the mask depends on how it rounds.
 
+``gru_encoder_library`` computes the same function through
+``torch.nn.GRU`` over each row's live steps, as the yardstick of kernel F's
+speed (``chip_smoke.py``'s ``library_ms``); the detect path never calls it.
+
 Weights travel as one packed f32 vector (:func:`pack_weights`), the layout
 the kernel copies into shared memory: the matrices are stored transposed,
 (48, 16), so each gate's 16 weights are contiguous.
@@ -25,6 +29,7 @@ the kernel copies into shared memory: the matrices are stored transposed,
 from __future__ import annotations
 
 import torch
+from torch.nn.utils.rnn import pack_padded_sequence
 
 from ..models.cnn import SIG_QUANT_LO, SIG_QUANT_SCALE
 
@@ -114,3 +119,66 @@ def gru_encoder_plain(xq: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     (N, 16) f32."""
     x, live = dequantise(xq)
     return gru_scan_plain(x, live, w)
+
+
+# Kernel F's yardstick: the same function as one library call.  A masked
+# step carries both states, which is the same as deleting it, so with each
+# row's live steps compacted to the front, torch.nn.GRU (cuDNN on a card)
+# over a packed batch computes F.  Used by chip_smoke.py and the tests only,
+# never on the detect path.
+
+def _torch_gate_order(m: torch.Tensor) -> torch.Tensor:
+    """Keras gate columns [z, r, h] -> PyTorch's [r, z, n]."""
+    u = GRU_UNITS
+    return torch.cat([m[..., u : 2 * u], m[..., :u], m[..., 2 * u :]], dim=-1)
+
+
+def library_gru(w: torch.Tensor) -> torch.nn.GRU:
+    """``torch.nn.GRU(1, 16, num_layers=2, batch_first=True)`` holding the
+    packed weights ``w``, on ``w``'s device.  PyTorch's GRU is the
+    ``reset_after`` form, n = tanh(W_in x + b_in + r * (W_hn h + b_hn)), and
+    h' = (1 - z) * n + z * h, so only the gate order changes."""
+    p = unpack_weights(w)
+    gru = torch.nn.GRU(1, GRU_UNITS, num_layers=2, batch_first=True)
+    gru = gru.to(w.device)
+    layers = (("k0", "U0", "b0x", "b0h"), ("W1", "U1", "b1x", "b1h"))
+    with torch.no_grad():
+        for layer, names in enumerate(layers):
+            kernel, recurrent, bx, bh = (_torch_gate_order(p[k]) for k in names)
+            getattr(gru, f"weight_ih_l{layer}").copy_(kernel.t())
+            getattr(gru, f"weight_hh_l{layer}").copy_(recurrent.t())
+            getattr(gru, f"bias_ih_l{layer}").copy_(bx[0])
+            getattr(gru, f"bias_hh_l{layer}").copy_(bh[0])
+    return gru
+
+
+def pack_live(xq: torch.Tensor):
+    """(packed sequence of each row's live samples, in order, the rows that
+    have any; those rows' indices).  ``pack_padded_sequence`` refuses length
+    0, so rows with no live step are left out (None when no row is left)."""
+    x, live = dequantise(xq)
+    lengths = live.sum(dim=1)
+    # live steps first, each group in time order (a stable sort on "dead")
+    order = torch.sort((~live).to(torch.uint8), dim=1, stable=True).indices
+    compact = torch.gather(x, 1, order)
+    rows = torch.nonzero(lengths > 0).squeeze(1)
+    if rows.numel() == 0:
+        return None, rows
+    packed = pack_padded_sequence(compact[rows].unsqueeze(-1),
+                                  lengths[rows].cpu(), batch_first=True,
+                                  enforce_sorted=False)
+    return packed, rows
+
+
+def gru_encoder_library(xq: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Kernel F's function through ``torch.nn.GRU`` over the live steps:
+    ``xq`` (N, T) u8 codes -> (N, 16) f32, zeros for rows with no live
+    step."""
+    out = torch.zeros((xq.shape[0], GRU_UNITS), dtype=torch.float32,
+                      device=xq.device)
+    packed, rows = pack_live(xq)
+    if packed is not None:
+        with torch.no_grad():
+            _, h_n = library_gru(w)(packed)
+        out[rows] = h_n[-1]
+    return out

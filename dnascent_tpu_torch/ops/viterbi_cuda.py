@@ -14,9 +14,13 @@ from . import cuda_lib
 from .viterbi import viterbi_backtrace_plain, viterbi_fill_plain
 
 __all__ = ["viterbi_fill_codes", "viterbi_backtrace", "viterbi_fill_plain",
-           "viterbi_backtrace_plain", "FILL_LAUNCHES", "BACKTRACE_LAUNCHES"]
+           "viterbi_backtrace_plain", "FILL_LAUNCHES", "BACKTRACE_LAUNCHES",
+           "FILL_MAX_STATES"]
 
 FILL_LAUNCHES = cuda_lib.LaunchCounter()
+# kernel C gives each window at most 32 lanes of 3 states each (the path's
+# state buckets are 48 and 72)
+FILL_MAX_STATES = 96
 BACKTRACE_LAUNCHES = cuda_lib.LaunchCounter()
 
 
@@ -26,7 +30,8 @@ def viterbi_fill_codes(obs_T, mu, inv_sigma, lp_const, n_obs, n_states,
     ``inv_sigma``, ``lp_const`` (N, W) f32; ``n_obs``, ``n_states`` (W,)
     i32; ``iM2M``, ``eM2M``, ``eOrIM2M`` (W,) f32; ``hmm_logs`` the six
     fixed log-probs (eD2D, eD2M, eI2M, eM2D, iM2I, iI2I).  Returns (codes
-    (T, N, W) u8, I_fin, M_fin, D_fin (N, W) f32)."""
+    (T, N, W) u8, I_fin, M_fin, D_fin (N, W) f32), every cell bitwise equal
+    to ``viterbi_fill_plain``'s.  The kernel takes N <= FILL_MAX_STATES."""
     dev = obs_T.device
     T, W = obs_T.shape
     N = mu.shape[0]
@@ -42,8 +47,9 @@ def viterbi_fill_codes(obs_T, mu, inv_sigma, lp_const, n_obs, n_states,
     if not cuda_lib.use_kernel(dev):
         return viterbi_fill_plain(obs_T, mu, inv_sigma, lp_const, n_obs,
                                   n_states, iM2M, eM2M, eOrIM2M, hmm_logs)
-    if 3 * N * 32 * 4 > 48 * 1024:
-        raise ValueError(f"{N} states exceed the kernel's shared-memory plan")
+    if N > FILL_MAX_STATES:
+        raise ValueError(f"{N} states exceed the kernel's {FILL_MAX_STATES}"
+                         " (32 lanes of 3 states a window)")
     codes = torch.empty((T, N, W), dtype=torch.uint8, device=dev)
     finals = torch.empty((3, N, W), dtype=f32, device=dev)
     err = cuda_lib.lib().dt_viterbi_fill(

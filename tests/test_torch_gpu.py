@@ -146,32 +146,53 @@ def test_general_fill_matches_plain(cuda, models):
     assert torch.equal(moves, ref)
 
 
-def test_gru_encoder_matches_plain(cuda):
+@pytest.mark.parametrize("n", [1, 129, 8192])
+def test_gru_encoder_matches_plain(cuda, n):
     """Kernel F within the JAX contract's 2e-5 of its twin, padded tails
     included; rows made only of the code q=128 (dequantised to 0.0 by IEEE
-    division) are masked at every step by both, so they stay exactly 0."""
-    rng = np.random.default_rng(11)
-    n, t = 8192, 20
+    division) are masked at every step by both, so they stay exactly 0;
+    all-live rows; a single row, and a block's ragged tail (129 rows).  F
+    ranks a block's rows by live count, so permuting the rows must permute
+    the output, bit for bit."""
+    rng = np.random.default_rng(11 + n)
+    t = 20
     xq = np.clip(rng.normal(128, 30, (n, t)), 1, 255).astype(np.uint8)
     xq[np.arange(t)[None, :] >= rng.integers(0, t + 1, n)[:, None]] = 0
     xq[rng.random((n, t)) < 0.02] = 128
-    xq[:64] = 128
+    n128, n_live = n // 8, max(1, n // 8)
+    xq[:n128] = 128
+    xq[n128 : n128 + n_live] = rng.choice(
+        np.r_[1:128, 129:256], (n_live, t)).astype(np.uint8)
     model = reference_cnn.params_from_tensors(
         reference_cnn.ReferenceDetectCNN(), _reference_tensors(7))
     w = model.gru.packed().detach().to(cuda)
     xq = torch.from_numpy(xq).to(cuda)
     got = gru_cuda.gru_encoder(xq, w)
     want = gru_cuda.gru_encoder_plain(xq, w)
+    perm = torch.from_numpy(rng.permutation(n)).to(cuda)
+    permuted = gru_cuda.gru_encoder(xq[perm].contiguous(), w)
     torch.cuda.synchronize()
     assert float((got - want).abs().max()) <= 2e-5
-    assert torch.equal(got[:64], torch.zeros_like(got[:64]))
-    assert torch.equal(want[:64], got[:64])
+    assert torch.equal(got[:n128], torch.zeros_like(got[:n128]))
+    assert torch.equal(want[:n128], got[:n128])
+    assert bool((got[n128 : n128 + n_live] != 0).any(dim=1).all())
+    assert torch.equal(permuted, got[perm])
 
 
-def test_viterbi_kernels_match_plain(cuda):
-    rng = np.random.default_rng(9)
-    W, T, N = 300, 128, 48
-    n_states = rng.integers(5, 42, W).astype(np.int32)
+@pytest.mark.parametrize("W", [1, 33, 2048])
+@pytest.mark.parametrize("T", [128, 1024])
+@pytest.mark.parametrize("N", [48, 72])
+def test_viterbi_kernels_match_plain(cuda, N, T, W):
+    """Kernels C and D bitwise against their twins (every code cell and the
+    finals, then the paths) at both state buckets, the smallest and the
+    largest observation bucket, one window, a ragged block of windows and
+    the main path's 2048; the first windows take the edge counts (n_obs 1
+    and T, n_states 1 and N)."""
+    rng = np.random.default_rng(9 + N + T + W)
+    n_states = rng.integers(1, N + 1, W).astype(np.int32)
+    n_obs = rng.integers(1, T + 1, W).astype(np.int32)
+    edges = [(T, N), (1, 1), (1, N), (T, 1)][:W]
+    n_obs[:len(edges)], n_states[:len(edges)] = zip(*edges)
     ranks = rng.integers(0, 4 ** 9, (N, W))
     ranks[np.arange(N)[:, None] >= n_states[None, :]] = -1
     table = np.stack([rng.normal(0, 1, 4 ** 9),
@@ -179,7 +200,7 @@ def test_viterbi_kernels_match_plain(cuda):
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
     mu, inv, lpc = tvit.emission_planes(t(ranks), t(table))
     obs = t(rng.normal(0, 1, (T, W)).astype(np.float32))
-    n_obs = t(rng.integers(10, T, W).astype(np.int32))
+    n_obs = t(n_obs)
     n_st = t(n_states)
     hmm = tuple(getattr(DNA_R10.hmm, k) for k in HMM_KEY)
     iM2M, eM2M, eOrIM2M, eM2MorD, logs = tvit.transition_scores(

@@ -163,6 +163,49 @@ def test_gru_twin_matches_pallas_interpret(gru_case):
     np.testing.assert_array_equal(ours[40:48], 0.0)
 
 
+def _library_case(case: str, rng) -> np.ndarray:
+    """64 rows of u8 codes for one yardstick case."""
+    n, t = 64, rc.RAWDEPTH
+    live_codes = np.r_[1:128, 129:256]
+    xq = rng.choice(live_codes, (n, t)).astype(np.uint8)
+    if case == "dead_mid_row":     # padding and q=128 between live steps
+        xq[rng.random((n, t)) < 0.3] = 0
+        xq[rng.random((n, t)) < 0.1] = 128
+    elif case == "all_dead":       # nothing to pack: every row stays 0
+        xq[:] = 0
+    elif case == "q128":           # rows of only q=128, and q=128 anywhere
+        xq[rng.random((n, t)) < 0.4] = 128
+        xq[:8] = 128
+    return xq
+
+
+@pytest.mark.parametrize("case", ["dead_mid_row", "all_dead", "all_live",
+                                  "q128"])
+def test_gru_library_matches_plain_and_scan(case):
+    """Kernel F's yardstick, ``torch.nn.GRU`` over each row's live steps
+    (``gru_encoder_library``), computes F's function: within GRU_ATOL of
+    the plain twin and of the JAX scan, rows without a live step exactly
+    0."""
+    torch.set_num_threads(2)
+    params = rc.params_from_tensors(trc.seed_affine(rc.synthetic_tensors(0),
+                                                    10))
+    w = tgru.pack_weights({k: _t(v) for k, v in params["gru0"].items()},
+                          {k: _t(v) for k, v in params["gru1"].items()})
+    xq = _library_case(case, np.random.default_rng(17))
+    ours = tgru.gru_encoder_library(torch.from_numpy(xq), w).numpy()
+    twin = tgru.gru_encoder_plain(torch.from_numpy(xq), w).numpy()
+    q = xq.astype(np.float32)
+    x = np.where(q == 0, 0.0, (q - 1.0) / SIG_QUANT_SCALE + SIG_QUANT_LO
+                 ).astype(np.float32)
+    ref = np.asarray(rc._gru_scan(jnp.asarray(x), jnp.asarray(x != 0),
+                                  params["gru0"], params["gru1"]))
+    np.testing.assert_allclose(ours, twin, atol=GRU_ATOL)
+    np.testing.assert_allclose(ours, ref, atol=GRU_ATOL)
+    dead = ~(x != 0).any(axis=1)
+    assert dead.any() == (case in ("all_dead", "q128"))
+    np.testing.assert_array_equal(ours[dead], 0.0)
+
+
 def _model_inputs(B=2, L=256, seed=0):
     rng = np.random.default_rng(seed)
     core = rng.integers(1, 1025, (B, L))
