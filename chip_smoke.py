@@ -10,9 +10,11 @@ Phases, one line each:
      and spill counts;
   1. each kernel against its plain PyTorch twin on the card, with both
      times: the static and the per-k-mer-stdv fills and the chase at the
-     main path's 32 reads of 10 kb; Viterbi fill and backtrace at 2048
-     windows, T=192, N=48; the GRU encoder at 2^19 rows of 20 samples
-     (padded tails, rows of the code q=128), beside its library yardstick
+     main path's 32 reads of 10 kb; the Viterbi fill and the Viterbi
+     termination and backtrace at 2048 windows, T=192, N=48 (the latter
+     also at s_rows 192, a 64-bucket below T+N); the GRU encoder at 2^19
+     rows of 20 samples (padded tails, rows of the code q=128), beside its
+     library yardstick
      (``gru.gru_encoder_library``: ``torch.nn.GRU`` over each row's live
      steps, TF32 off), timed whole and as the bare ``nn.GRU`` call;
   2. four 2 kb reads through ``detect_reads`` on CUDA and on the CPU with
@@ -98,8 +100,8 @@ LIBRARY_NOTES = {
     "banded_chase": "no PyTorch call: a data-dependent walk of trace codes",
     "viterbi_fill": "no PyTorch call: a max-product DP emitting argmax "
                     "pointer codes",
-    "viterbi_backtrace": "no PyTorch call: a data-dependent walk of pointer "
-                         "codes",
+    "viterbi_backtrace": "no PyTorch call: termination and a data-dependent "
+                         "walk of pointer codes",
     "banded_fill_general": "no PyTorch call: kernel A's DP with per-k-mer "
                            "emissions",
     "gru_encoder": "torch.nn.GRU(1, 16, num_layers=2) over each row's live "
@@ -132,9 +134,13 @@ def ptxas_report(log: str) -> dict:
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls (CUDA events)."""
+    """Mean device time of ``fn`` over ``reps`` calls (CUDA events).  The
+    card first spins for ~0.1 ms a call, so the host has queued every call
+    before the first runs: a kernel shorter than its wrapper's host work is
+    timed back to back, not at the host's issue rate."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000 * reps)
     start.record()
     for _ in range(reps):
         fn()
@@ -214,8 +220,7 @@ def reference_model(dev):
 def phase1_kernels(torch, np, models, dev):
     from dnascent_tpu_torch.config import DNA_R10
     from dnascent_tpu_torch.pipeline.source import SimulatedSource
-    from dnascent_tpu_torch.ops import (banded_cuda, viterbi as tvit,
-                                        viterbi_cuda)
+    from dnascent_tpu_torch.ops import banded_cuda, viterbi_cuda
     from dnascent_tpu_torch.pipeline import prep
 
     rows = {}
@@ -258,15 +263,21 @@ def phase1_kernels(torch, np, models, dev):
         tensor_bytes(*vargs[:9], *got),
         live * OPS_PER_CELL["viterbi_fill"]))
 
-    _, kind0 = tvit.terminate(*got[1:], n_st, eM2MorD, logs[2])
-    bargs = (got[0], kind0, n_obs, n_st, T + N)
-    path, rows["viterbi_backtrace"] = compare(
-        torch, "Viterbi backtrace",
-        lambda: viterbi_cuda.viterbi_backtrace(*bargs),
-        lambda: viterbi_cuda.viterbi_backtrace_plain(*bargs), 10, [T, N, W])
-    # the walk reads one code byte a step of each window's path
-    rows["viterbi_backtrace"].update(bound(
-        tensor_bytes(kind0, n_obs, n_st, *path) + int(path[1].sum()), 0))
+    dargs = (*got, n_obs, n_st, eM2MorD, logs[2])
+    for s_rows in (T + N, 192):
+        path, row = compare(
+            torch, f"Viterbi termination and backtrace, s_rows {s_rows}",
+            lambda: viterbi_cuda.viterbi_terminate_backtrace(*dargs, s_rows),
+            lambda: viterbi_cuda.viterbi_terminate_backtrace_plain(
+                *dargs, s_rows), 10, [T, N, W, s_rows])
+        # it reads the three finals at n_states-1, eM2MorD, the two counts
+        # and one code byte a step of each window's path
+        row.update(bound(tensor_bytes(n_obs, n_st, eM2MorD, *path)
+                         + 3 * 4 * W + int(path[1].sum()), 0))
+        if s_rows == T + N:
+            rows["viterbi_backtrace"] = row
+        else:
+            rows["viterbi_backtrace"]["s_rows_192"] = row
 
     rows["banded_fill_general"] = phase1_general_fill(torch, models, dev)
     rows["gru_encoder"] = phase1_gru(torch, np, dev)

@@ -7,7 +7,8 @@
 // chain in the closed form D[i] = max_{j<i}(M[j] - j*eD2D) + eM2D +
 // (i-1)*eD2D, plus the final I/M/D columns for termination.  Codes and
 // finals are bitwise equal to viterbi_fill_plain (-fmad=false, every cell
-// of every column, t >= n_obs included).
+// of every column, t >= n_obs included).  The codes' window stride Wc (>= W)
+// is the caller's: a multiple of 16 lets kernel D fetch them by TMA.
 //
 // What bounds it on this card: T dependent columns per window, each ~40
 // operations a state; the code stream (T*N*W bytes) is the only large
@@ -51,7 +52,7 @@ __global__ void __launch_bounds__(kThreads) viterbi_fill_kernel(
     const float* __restrict__ inv_sigma, const float* __restrict__ lp_const,
     const int* __restrict__ n_obs, const int* __restrict__ n_states,
     const float* __restrict__ iM2M_w, const float* __restrict__ eM2M_w,
-    const float* __restrict__ eOrIM2M_w, int T, int N, int W,
+    const float* __restrict__ eOrIM2M_w, int T, int N, int W, int Wc,
     float eD2D, float eD2M, float eI2M, float eM2D, float iM2I, float iI2I,
     uint8_t* __restrict__ codes, float* __restrict__ I_fin,
     float* __restrict__ M_fin, float* __restrict__ D_fin) {
@@ -210,10 +211,10 @@ __global__ void __launch_bounds__(kThreads) viterbi_fill_kernel(
     // the chunk's codes: rows (t, i) of kWin window-consecutive bytes
     const int n_win = min(kWin, W - w0);
     const int n_bytes = rows * N * kWin;
-    uint8_t* dst = codes + (size_t)t0 * N * W + w0;
+    uint8_t* dst = codes + (size_t)t0 * N * Wc + w0;
     for (int e = tid; e < n_bytes; e += kThreads) {
       const int row = e / kWin, col = e % kWin;
-      if (col < n_win) dst[(size_t)row * W + col] = cs[e];
+      if (col < n_win) dst[(size_t)row * Wc + col] = cs[e];
     }
   }
 #pragma unroll
@@ -232,8 +233,9 @@ template <int G>
 cudaError_t launch(const float* obs, const float* mu, const float* inv_sigma,
                    const float* lp_const, const int* n_obs,
                    const int* n_states, const float* iM2M, const float* eM2M,
-                   const float* eOrIM2M, int T, int N, int W, float eD2D,
-                   float eD2M, float eI2M, float eM2D, float iM2I, float iI2I,
+                   const float* eOrIM2M, int T, int N, int W, int Wc,
+                   float eD2D, float eD2M, float eI2M, float eM2D, float iM2I,
+                   float iI2I,
                    uint8_t* codes, float* I_fin, float* M_fin, float* D_fin,
                    cudaStream_t stream) {
   constexpr int kWin = kThreads / G;
@@ -241,7 +243,8 @@ cudaError_t launch(const float* obs, const float* mu, const float* inv_sigma,
   const int blocks = (W + kWin - 1) / kWin;
   viterbi_fill_kernel<G><<<blocks, kThreads, smem, stream>>>(
       obs, mu, inv_sigma, lp_const, n_obs, n_states, iM2M, eM2M, eOrIM2M, T,
-      N, W, eD2D, eD2M, eI2M, eM2D, iM2I, iI2I, codes, I_fin, M_fin, D_fin);
+      N, W, Wc, eD2D, eD2M, eI2M, eM2D, iM2I, iI2I, codes, I_fin, M_fin,
+      D_fin);
   return cudaGetLastError();
 }
 
@@ -251,15 +254,15 @@ DT_EXPORT int dt_viterbi_fill(
     const float* obs, const float* mu, const float* inv_sigma,
     const float* lp_const, const int* n_obs, const int* n_states,
     const float* iM2M, const float* eM2M, const float* eOrIM2M, int T, int N,
-    int W, float eD2D, float eD2M, float eI2M, float eM2D, float iM2I,
+    int W, int Wc, float eD2D, float eD2M, float eI2M, float eM2D, float iM2I,
     float iI2I, uint8_t* codes, float* I_fin, float* M_fin, float* D_fin,
     void* stream) {
-  if (W < 1 || T < 1 || N < 1 || N > 32 * kS)
+  if (W < 1 || T < 1 || N < 1 || N > 32 * kS || Wc < W)
     return (int)cudaErrorInvalidValue;
   // the path's state buckets, N=48 and N=72 (eventalign.py): 16 lanes for
   // the first, 32 (24 of them holding states) for the second
   auto fill = N <= 16 * kS ? launch<16> : launch<32>;
   return (int)fill(obs, mu, inv_sigma, lp_const, n_obs, n_states, iM2M, eM2M,
-                   eOrIM2M, T, N, W, eD2D, eD2M, eI2M, eM2D, iM2I, iI2I,
+                   eOrIM2M, T, N, W, Wc, eD2D, eD2M, eI2M, eM2D, iM2I, iI2I,
                    codes, I_fin, M_fin, D_fin, (cudaStream_t)stream);
 }

@@ -45,11 +45,12 @@ _SIGNATURES = {
     # trace, rights, best_event, n_kmers, S, Sp, B, W, out, stream
     "dt_banded_chase": [_P] * 4 + [_I] * 4 + [_P] * 2,
     # obs, mu, inv_sigma, lp_const, n_obs, n_states, iM2M, eM2M, eOrIM2M,
-    # T, N, W, six log-probs, codes, I_fin, M_fin, D_fin, stream
-    "dt_viterbi_fill": [_P] * 9 + [_I] * 3 + [_F] * 6 + [_P] * 5,
-    # codes, kind0, n_obs, n_states, T, N, W, s_pad, path_code, path_len,
-    # stream
-    "dt_viterbi_backtrace": [_P] * 4 + [_I] * 4 + [_P] * 3,
+    # T, N, W, Wc (the codes' window stride), six log-probs, codes, I_fin,
+    # M_fin, D_fin, stream
+    "dt_viterbi_fill": [_P] * 9 + [_I] * 4 + [_F] * 6 + [_P] * 5,
+    # codes, I_fin, M_fin, D_fin, n_obs, n_states, eM2MorD, eI2M, T, N, W,
+    # Wc, s_pad, path_code, path_len, stream
+    "dt_viterbi_terminate_backtrace": [_P] * 7 + [_F] + [_I] * 5 + [_P] * 3,
     # xq, w, N, T, scale, lo, out, stream
     "dt_gru_encoder": [_P] * 2 + [_I] * 2 + [_F] * 2 + [_P] * 2,
 }

@@ -191,6 +191,27 @@ def viterbi_backtrace_plain(codes, kind0, n_obs, n_states, s_rows: int):
     return path, path_len
 
 
+def left_align_paths(path):
+    """(W, s_pad) PAD-gapped path codes -> (the same rows with their codes
+    moved to the front in order and PAD only as a tail, path_len (W,) i32)."""
+    pad = (path & 3) == KIND_PAD
+    order = torch.sort(pad.to(torch.uint8), dim=1, stable=True).indices
+    return path.gather(1, order), (~pad).sum(dim=1).to(torch.int32)
+
+
+def viterbi_terminate_backtrace_plain(codes, I_fin, M_fin, D_fin, n_obs,
+                                      n_states, eM2MorD, eI2M: float,
+                                      s_rows: int):
+    """Plain twin of kernel D: termination, the countdown walk, and each
+    row left-aligned.  Returns (path (W, s_pad) u8 in forward order with PAD
+    only as a tail, path_len (W,) i32), s_pad = s_rows rounded up to a
+    multiple of 8."""
+    _score, kind0 = terminate(I_fin, M_fin, D_fin, n_states, eM2MorD, eI2M)
+    path, _len = viterbi_backtrace_plain(codes, kind0, n_obs, n_states,
+                                         s_rows)
+    return left_align_paths(path)
+
+
 def decode_path(codes: np.ndarray, n_states: int):
     """Host decode of one forward-order code array -> (kinds, positions);
     pos[last] anchors at n_states-1, pos[t] = n_states-1 - deltas after t."""

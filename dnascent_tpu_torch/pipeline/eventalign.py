@@ -4,11 +4,11 @@
 Every 50 bp window of every read is built up front on the host (windows
 advance by their full k-mer span, so they are independent), the batch's
 observation stream is rebuilt on the device from prep's resident fill input,
-and windows run through the Viterbi fill (kernel C), termination and the
-Viterbi backtrace (kernel D) in chunks grouped by observation and state
-bucket.  The native post-processing turns each read's paths into aligned
-positions.  Strict mode (the reference's sequential window coupling) and the
-eventalign text table are not ported.
+and windows run through the Viterbi fill (kernel C) and the Viterbi
+termination and backtrace (kernel D) in chunks grouped by observation and
+state bucket.  The native post-processing turns each read's paths into
+aligned positions.  Strict mode (the reference's sequential window
+coupling) and the eventalign text table are not ported.
 """
 
 from __future__ import annotations
@@ -181,9 +181,9 @@ def viterbi_windows(obs_flat: torch.Tensor, ranks_flat: torch.Tensor,
                     model_table: torch.Tensor, lens: np.ndarray,
                     ostarts: np.ndarray, rstarts: np.ndarray, ns: np.ndarray,
                     epb: np.ndarray, hmm_probs, n_state_pad: int):
-    """One chunk of windows through fill (kernel C), termination and
-    backtrace (kernel D).  Returns the (W, s_pad) u8 path codes on the
-    device (forward order, PAD gaps)."""
+    """One chunk of windows through fill (kernel C) and termination and
+    backtrace (kernel D).  Returns (path (W, s_pad) u8, path_len (W,) i32)
+    on the device, each row's codes in forward order, left-aligned."""
     dev = obs_flat.device
     T = next(b for b in T_BUCKETS if b >= int(lens.max()))
     N = n_state_pad
@@ -202,13 +202,34 @@ def viterbi_windows(obs_flat: torch.Tensor, ranks_flat: torch.Tensor,
     codes, I_fin, M_fin, D_fin = viterbi_cuda.viterbi_fill_codes(
         obs_T.contiguous(), mu, inv_sigma, lp_const, n_obs, n_states,
         iM2M, eM2M, eOrIM2M, logs)
-    _score, kind0 = vit.terminate(I_fin, M_fin, D_fin, n_states, eM2MorD,
-                                  logs[2])
     # backtrace length bound from the chunk's true maxima, bucketed to 64
     bt_len = -(-(int(lens.max()) + int(ns.max()) + 2) // 64) * 64
-    path, _len = viterbi_cuda.viterbi_backtrace(
-        codes, kind0, n_obs, n_states, min(bt_len, T + N))
-    return path
+    return viterbi_cuda.viterbi_terminate_backtrace(
+        codes, I_fin, M_fin, D_fin, n_obs, n_states, eM2MorD, logs[2],
+        min(bt_len, T + N))
+
+
+def _read_paths(chunks, n_win: int, counts: np.ndarray):
+    """The chunks' left-aligned paths, as each read's concatenated codes in
+    window order and its windows' step counts (``counts`` windows a read,
+    in window order).  Whole-batch array work: one download of each chunk's
+    live columns, one scatter into the window-ordered stream."""
+    steps = np.zeros(n_win, dtype=np.int64)
+    rows = []
+    for cid, path, path_len in chunks:
+        plen = path_len.cpu().numpy().astype(np.int64)
+        width = int(plen.max()) if plen.shape[0] else 0
+        rows.append((cid, path[:, :width].cpu().numpy(), plen))
+        steps[cid] = plen
+    offs = np.concatenate(([0], np.cumsum(steps)))
+    flat = np.empty(int(offs[-1]), dtype=np.uint8)
+    for cid, codes, plen in rows:
+        col = np.arange(codes.shape[1])
+        keep = col[None, :] < plen[:, None]
+        flat[(offs[cid][:, None] + col[None, :])[keep]] = codes[keep]
+    ends = np.cumsum(counts)
+    return [(flat[offs[w1 - c]:offs[w1]], steps[w1 - c:w1])
+            for c, w1 in zip(counts, ends)]
 
 
 def _positions(st: _ReadState, ws: _WindowSet, codes: np.ndarray,
@@ -278,23 +299,13 @@ def run_eventalign(prepped: list[PreparedRead], models: PoreModelSet,
             order = np.flatnonzero((tb == bi) & (ns_hi == hi))
             for c0 in range(0, order.shape[0], max_windows_per_batch):
                 cid = order[c0 : c0 + max_windows_per_batch]
-                chunks.append((cid, viterbi_windows(
+                chunks.append((cid, *viterbi_windows(
                     obs_flat, ranks_flat, model_table, lens[cid],
                     ostarts[cid], rstarts[cid], ns[cid], epb[cid], hmm_probs,
                     n_pad)))
-    # PAD-filter every window's path, restoring per-read window order
-    path_of = [None] * n_win
-    for cid, path in chunks:
-        path = path.cpu().numpy()
-        keep = (path & 3) != vit.KIND_PAD
-        for row, wid in enumerate(cid):
-            path_of[wid] = path[row][keep[row]]
-    w0 = 0
-    for st, ws in sets:
-        w1 = w0 + ws.ri.shape[0]
-        paths = path_of[w0:w1]
-        w0 = w1
-        steps = np.fromiter((c.shape[0] for c in paths), np.int64, len(paths))
-        pos = _positions(st, ws, np.concatenate(paths), steps, cfg)
+    counts = np.array([ws.ri.shape[0] for _, ws in sets], dtype=np.int64)
+    for (st, ws), (codes, steps) in zip(sets, _read_paths(chunks, n_win,
+                                                          counts)):
+        pos = _positions(st, ws, codes, steps, cfg)
         out[st.p.record.read_id] = EventalignResult(pos, pos is not None)
     return out

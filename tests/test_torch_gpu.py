@@ -179,20 +179,47 @@ def test_gru_encoder_matches_plain(cuda, n):
     assert torch.equal(permuted, got[perm])
 
 
-@pytest.mark.parametrize("W", [1, 33, 2048])
+def _tie_finals(I_f, M_f, D_f, n_states, eM2MorD, eI2M):
+    """Copies of the finals with ties at each window's last state: D = M +
+    eM2MorD (window % 4 == 0), M + eM2MorD = I + eI2M (1), all three (2),
+    as filled (3)."""
+    W = I_f.shape[1]
+    wi = torch.arange(W, device=I_f.device)
+    last = (n_states.long() - 1).clamp(0, I_f.shape[0] - 1)
+    I_f, M_f, D_f = I_f.clone(), M_f.clone(), D_f.clone()
+    m = M_f[last, wi]
+    m = torch.where(torch.isfinite(m), m, torch.full_like(m, -50.0))
+    m_cand = m + eM2MorD
+    i_eq = m_cand - eI2M
+    i_eq = torch.where(i_eq + eI2M == m_cand, i_eq,
+                       torch.nextafter(i_eq, torch.full_like(i_eq, 1e30)))
+    case = wi % 4
+    M_f[last, wi] = torch.where(case < 3, m, M_f[last, wi])
+    D_f[last, wi] = torch.where(case == 1, m_cand - 1.0,
+                                torch.where(case < 3, m_cand, D_f[last, wi]))
+    I_f[last, wi] = torch.where(case == 0, m_cand - 1.0,
+                                torch.where(case < 3, i_eq, I_f[last, wi]))
+    return I_f, M_f, D_f
+
+
+@pytest.mark.parametrize("W", [1, 33, 1247, 2048])
 @pytest.mark.parametrize("T", [128, 1024])
 @pytest.mark.parametrize("N", [48, 72])
 def test_viterbi_kernels_match_plain(cuda, N, T, W):
     """Kernels C and D bitwise against their twins (every code cell and the
-    finals, then the paths) at both state buckets, the smallest and the
-    largest observation bucket, one window, a ragged block of windows and
-    the main path's 2048; the first windows take the edge counts (n_obs 1
-    and T, n_states 1 and N)."""
+    finals, then path and path_len) at both state buckets, the smallest and
+    the largest observation bucket, one window, ragged blocks of windows
+    (33 and 1247, not multiples of 16) and the main path's 2048; the first
+    windows take the edge counts (n_obs 1 and T, n_states 1 and N).  D runs
+    at s_rows = T + N, at the path's 64-bucket of the true maxima, and on
+    finals crafted to tie at termination."""
     rng = np.random.default_rng(9 + N + T + W)
     n_states = rng.integers(1, N + 1, W).astype(np.int32)
     n_obs = rng.integers(1, T + 1, W).astype(np.int32)
     edges = [(T, N), (1, 1), (1, N), (T, 1)][:W]
     n_obs[:len(edges)], n_states[:len(edges)] = zip(*edges)
+    bucket = min(-(-(int(n_obs.max()) + int(n_states.max()) + 2) // 64) * 64,
+                 T + N)
     ranks = rng.integers(0, 4 ** 9, (N, W))
     ranks[np.arange(N)[:, None] >= n_states[None, :]] = -1
     table = np.stack([rng.normal(0, 1, 4 ** 9),
@@ -211,12 +238,16 @@ def test_viterbi_kernels_match_plain(cuda, N, T, W):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    _, kind0 = tvit.terminate(*got[1:], n_st, eM2MorD, logs[2])
-    path = viterbi_cuda.viterbi_backtrace(got[0], kind0, n_obs, n_st, T + N)
-    ref = viterbi_cuda.viterbi_backtrace_plain(got[0], kind0, n_obs, n_st,
-                                               T + N)
-    for g, w in zip(path, ref):
-        assert torch.equal(g, w)
+    ties = _tie_finals(*got[1:], n_st, eM2MorD, logs[2])
+    for finals, s_rows in ((got[1:], T + N), (got[1:], bucket),
+                           (ties, T + N)):
+        args = (got[0], *finals, n_obs, n_st, eM2MorD, logs[2], s_rows)
+        path = viterbi_cuda.viterbi_terminate_backtrace(*args)
+        ref = viterbi_cuda.viterbi_terminate_backtrace_plain(*args)
+        torch.cuda.synchronize()
+        for g, w in zip(path, ref):
+            assert torch.equal(g, w)
+        assert int(path[1].min()) > 0
 
 
 def test_detect_cuda_matches_cpu(cuda, models):

@@ -84,8 +84,11 @@ def test_port_imports_and_runs_without_jax():
 
 
 def _port_sources():
-    """Every .py of the port, and chip_smoke.py."""
+    """Every .py of the port, chip_smoke.py and the port's bench scripts."""
     out = [os.path.join(ROOT, "chip_smoke.py")]
+    out += [os.path.join(ROOT, "scripts", f)
+            for f in ("bench_banded_cuda.py", "bench_viterbi_gru_cuda.py",
+                      "profile_backtrace_cuda.py")]
     for dirpath, _, files in os.walk(PKG):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return out
