@@ -32,7 +32,23 @@ Phases, one line each:
      prints the histogram of live steps per row fed to F;
   5. the fit-stdv path: a pore model whose stdv varies per k-mer; CPU
      against CUDA on four 2 kb reads, then 32 reads of 10 kb on CUDA;
-     kernel E must have launched and kernel A must not.
+     kernel E must have launched and kernel A must not;
+  6. the flow after detect: (a) 64 reads of 10 kb, half of them reverse,
+     each with a BAM record (all-M CIGAR, SEQ in SAM orientation), at
+     batch 32 through ``detect_reads`` on CUDA with phase 3's DetectCNN,
+     written as modbam ``.bam`` and as ``.detect``; kernels A-D must have
+     launched; the ``.bam`` read back with ``iter_modbam_detected_reads``
+     must give the ``.detect`` coordinates (reverse reads one higher: the
+     modbam reader's convention, coord = refEnd - index) and
+     probabilities within 1/255; (b) ``forksense_run`` over 1024 synthetic
+     12-20 kb fork reads of varied span (half right, half left forks; in a
+     quarter the BrdU track reaches the read end) on the host, at least
+     90 % of them yielding their fork; (c) the ``seeBreaks`` CLI on (b)'s
+     beds in parity mode (native RNG; expected and observed read-end
+     fractions must be non-zero) and with ``--fast`` on CUDA, the
+     device bootstrap alone at 5000 iterations x 20,000 forks x the six end
+     tolerances, and at 5000 x 4000 against the numpy bootstrap in
+     distribution.
 Each path's launch counts are set to 0 just before it and read just after.
 The shapes of phases 3-5 (each path's C launches and F's live-step
 histogram, recorded by observers around the wrappers) show whether phase
@@ -50,7 +66,9 @@ exits non-zero without that line, as it does without CUDA.  The script
 imports nothing of jax or of the JAX package ``dnascent_tpu``.
 """
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import subprocess
@@ -477,29 +495,90 @@ class PathShapes:
                     gru_live_steps_hist=hist)
 
 
+def with_bam_records(records):
+    """The records with every second one on the reverse strand (sequence and
+    signal stay in sequencing orientation, only the genome mapping flips, as
+    the BAM source delivers reverse reads) and each given a BAM record: an
+    all-M CIGAR at its start, SEQ in reference-forward orientation as SAM
+    stores it.  Returns (records, BAM header text, ref names, ref lengths)."""
+    from dnascent_tpu_torch.io import bam
+    from dnascent_tpu_torch.utils.seqtools import reverse_complement
+    out = []
+    for i, r in enumerate(records):
+        rev = i % 2 == 1
+        seq = reverse_complement(r.reference_seq) if rev else r.reference_seq
+        out.append(dataclasses.replace(
+            r, is_reverse=rev, bam_record=bam.build_record(
+                r.read_id, 0, r.ref_start, 60, [(bam.BAM_CMATCH, len(seq))],
+                seq, flag=bam.FLAG_REVERSE if rev else 0)))
+    contig, contig_len = out[0].contig, max(r.ref_end for r in out) + 1000
+    header = f"@HD\tVN:1.6\tSO:unknown\n@SQ\tSN:{contig}\tLN:{contig_len}\n"
+    return out, header, [contig], [contig_len]
+
+
+def modbam_agreement(np, bam_path, detect_path):
+    """The ``.bam`` read back against the ``.detect`` of the same run: per
+    read, after sorting both by coordinate, equal coordinates (a reverse
+    read's one higher, the modbam reader's convention) and probabilities
+    within 1/255 (ML is p x 255 truncated)."""
+    from dnascent_tpu_torch.io.modbam import iter_modbam_detected_reads
+    from dnascent_tpu_torch.pipeline.forksense import parse_detect_file
+    got = {r.read_id: r for r in iter_modbam_detected_reads(bam_path)}
+    want = {r.read_id: r for r in parse_detect_file(detect_path)}
+    if got.keys() != want.keys() or not got:
+        fail(f"modbam reads {len(got)} differ from .detect reads {len(want)}")
+    err, n_sites, n_rev = 0.0, 0, 0
+    for rid, b in got.items():
+        d = want[rid]
+        ob = np.argsort(b.coords, kind="stable")
+        od = np.argsort(d.coords, kind="stable")
+        shift = 1 if b.strand == "rev" else 0
+        n_rev += shift
+        if b.strand != d.strand or not np.array_equal(b.coords[ob],
+                                                      d.coords[od] + shift):
+            fail(f"{rid}: modbam coordinates differ from .detect")
+        err = max(err, float(np.abs(b.brdu[ob] - d.brdu[od]).max()),
+                  float(np.abs(b.edu[ob] - d.edu[od]).max()))
+        n_sites += b.coords.shape[0]
+    if not err <= 1 / 255 + 1e-6:
+        fail(f"modbam probabilities differ from .detect by {err}")
+    return dict(reads=len(got), reverse_reads=n_rev, sites=n_sites,
+                max_prob_diff=err, tol=1 / 255 + 1e-6)
+
+
 def drive(torch, np, models, model, dev, counters, required, n_reads=64,
-          length=10000, absent=()):
+          length=10000, absent=(), modbam=False):
     """One path: ``n_reads`` reads of ``length`` at batch 32 through
-    ``detect_reads`` on CUDA, written as ``.detect``; every kernel named in
-    ``required`` must have launched in this run, none in ``absent``."""
+    ``detect_reads`` on CUDA, written as ``.detect`` (and with ``modbam`` as
+    ``.bam`` too, half the reads reverse, then read back); every kernel
+    named in ``required`` must have launched in this run, none in
+    ``absent``."""
     from dnascent_tpu_torch.config import DNA_R10
     from dnascent_tpu_torch.pipeline.source import SimulatedSource
+    from dnascent_tpu_torch.io.modbam import ModBamWriter
     from dnascent_tpu_torch.io.writers import DetectHRWriter, detect_header
     from dnascent_tpu_torch.pipeline.detect import DetectStats, detect_reads
 
     records = list(SimulatedSource(models, DNA_R10, n_reads=n_reads,
                                    length=length, seed=SEED + 300))
+    if modbam:
+        records, *bam_header = with_bam_records(records)
     stats = DetectStats()
     n_sites = 0
     n_written = 0
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "smoke.detect")
+        bam_out = os.path.join(tmp, "smoke.bam")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for c in counters.values():
             c.reset()
         t0 = time.perf_counter()
-        with PathShapes(torch) as shapes, DetectHRWriter(out) as w:
+        with contextlib.ExitStack() as stack:
+            shapes = stack.enter_context(PathShapes(torch))
+            w = stack.enter_context(DetectHRWriter(out))
+            bw = (stack.enter_context(ModBamWriter(bam_out, *bam_header))
+                  if modbam else None)
             w.write_header(detect_header("simulated", "simulated", "none", 1,
                                          20, 1000, compute="GPU"))
             for _rid, d in detect_reads(iter(records), models, model, DNA_R10,
@@ -512,6 +591,8 @@ def drive(torch, np, models, model, dev, counters, required, n_reads=64,
                 if d.kmer_starts.shape != d.ref_coords.shape:
                     fail(f"{d.record.read_id}: call table shapes differ")
                 w.write(d)
+                if bw is not None:
+                    bw.write(d)
                 n_sites += d.ref_coords.shape[0]
                 n_written += 1
         torch.cuda.synchronize()
@@ -519,6 +600,7 @@ def drive(torch, np, models, model, dev, counters, required, n_reads=64,
         launches = {k: c.count for k, c in counters.items()}
         with open(out) as fh:
             headers = sum(1 for line in fh if line.startswith(">"))
+        readback = modbam_agreement(np, bam_out, out) if modbam else None
     peak = torch.cuda.max_memory_allocated()
     if headers != n_written or n_written == 0:
         fail(f"wrote {headers} read records, expected {n_written} > 0")
@@ -532,10 +614,175 @@ def drive(torch, np, models, model, dev, counters, required, n_reads=64,
     wrong = [k for k in absent if launches[k] != 0]
     if wrong:
         fail(f"kernels launched off this path: {wrong}")
-    return dict(reads=n_reads, passed=n_written, failed_qc=stats.failed,
-                called_sites=n_sites, wall_s=wall,
-                reads_per_s=n_reads / wall, peak_mem_bytes=peak,
-                launches=launches, shapes=shapes.report())
+    res = dict(reads=n_reads, passed=n_written, failed_qc=stats.failed,
+               called_sites=n_sites, wall_s=wall,
+               reads_per_s=n_reads / wall, peak_mem_bytes=peak,
+               launches=launches, shapes=shapes.report())
+    if readback is not None:
+        res["modbam_readback"] = readback
+    return res
+
+
+def phase6_forksense(np, tmp):
+    """forkSense over 1024 synthetic 12-20 kb fork reads of varied span
+    (512 right, 512 left; in about a quarter the BrdU track ends at the read
+    end the fork moves towards) on the host; at least 90 % must yield their
+    fork.  Writes the fork and BrdU beds and the reads as ``.detect`` into
+    ``tmp`` for seeBreaks."""
+    from dnascent_tpu_torch.config import DNA_R10
+    from dnascent_tpu_torch.pipeline.forksense import forksense_run
+    from dnascent_tpu_torch.testing.forks import (varied_fork_reads,
+                                                  write_detect_file)
+
+    reads = varied_fork_reads(512, 512, seed=SEED)
+    t0 = time.perf_counter()
+    inc, outputs = forksense_run(reads, "EdU,BrdU", DNA_R10)
+    wall = time.perf_counter() - t0
+    beds = {"left": ("left_forks", "lf-"), "right": ("right_forks", "rf-"),
+            "brdu": ("brdu_beds", None)}
+    paths, found = {}, set()
+    for key, (attr, prefix) in beds.items():
+        paths[key] = os.path.join(tmp, f"{key}.bed")
+        with open(paths[key], "w") as fh:
+            fh.write("#Software dnascent_tpu_torch\n")
+            for o in outputs:
+                for line in getattr(o, attr):
+                    fh.write(line)
+                    rid = line.split()[3]
+                    if prefix and rid.startswith(prefix):
+                        found.add(rid)
+    yield_frac = len(found) / len(reads)
+    if yield_frac < 0.9:
+        fail(f"forkSense found the fork of {yield_frac:.3f} of the reads")
+    paths["detect"] = os.path.join(tmp, "forks.detect")
+    write_detect_file(reads, paths["detect"])
+    return paths, dict(reads=len(reads), wall_s=wall,
+                       reads_per_s=len(reads) / wall,
+                       distinct_spans=len({(r.ref_start, r.ref_end)
+                                           for r in reads}),
+                       fork_yield=yield_frac, brdu_p=inc.centroid_1,
+                       edu_p=inc.centroid_2)
+
+
+def read_seebreaks(np, path):
+    """(header values by key, expected fractions, observed fractions) of a
+    ``.seeBreaks`` file; fails unless every value is finite."""
+    head, vals, cur = {}, {}, None
+    with open(path) as fh:
+        for line in fh:
+            if line.startswith("#"):
+                k, _, v = line[1:].rstrip("\n").partition(" ")
+                head[k] = v
+            elif line.startswith(">"):
+                cur = vals.setdefault(line[1:].strip(), [])
+            else:
+                cur.append(float(line))
+    sim = np.asarray(vals.get("ExpectedReadEndFractions:", []))
+    obs = np.asarray(vals.get("ObservedReadEndFractions:", []))
+    stats = [float(head[k]) for k in ("ExpectedReadEndFraction",
+                                      "ObservedReadEndFraction", "Difference")]
+    if not (sim.size and obs.size and np.isfinite(sim).all()
+            and np.isfinite(obs).all() and np.isfinite(stats).all()):
+        fail(f"{path}: a malformed .seeBreaks file")
+    return head, sim, obs
+
+
+def within_distribution(np, got, want, what):
+    """The asserts of the JAX package's device-bootstrap test: means within
+    5 standard errors + 1e-3, spreads within 15 %."""
+    se = want.std(ddof=1) / np.sqrt(want.shape[0])
+    d_mean = abs(float(got.mean()) - float(want.mean()))
+    d_std = abs(float(got.std()) - float(want.std()))
+    if not (d_mean < 5 * se + 1e-3
+            and d_std < 0.15 * max(float(want.std()), 1e-3)):
+        fail(f"{what}: mean off by {d_mean} (5 se {5 * se}), spread by "
+             f"{d_std} (sd {want.std()})")
+    return dict(mean=float(got.mean()), ref_mean=float(want.mean()),
+                mean_diff=d_mean, five_se=5 * se, std=float(got.std()),
+                ref_std=float(want.std()))
+
+
+def phase6_seebreaks(torch, np, dev, paths):
+    """The seeBreaks CLI on phase 6's beds, parity mode then ``--fast`` on
+    the card; the device bootstrap alone at full width; and at 5000 x 4000
+    against the numpy bootstrap."""
+    from dnascent_tpu_torch import cli
+    from dnascent_tpu_torch.config import DNA_R10
+    from dnascent_tpu_torch.pipeline import seebreaks as sb
+
+    out, fractions = {}, {}
+    for mode, extra in (("parity", []), ("fast_cuda", ["--fast"])):
+        path = paths["detect"][: -len(".detect")] + f".{mode}.seeBreaks"
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(["seeBreaks", "-l", paths["left"], "-r",
+                           paths["right"], "-a", paths["brdu"], "-d",
+                           paths["detect"], "-o", path, *extra])
+        if rc != 0:
+            fail(f"seeBreaks {mode} returned {rc}")
+        head, *fractions[mode] = read_seebreaks(np, path)
+        out[mode] = dict(wall_s=time.perf_counter() - t0,
+                         n_forks=int(head["nForks"]),
+                         expected=float(head["ExpectedReadEndFraction"]),
+                         observed=float(head["ObservedReadEndFraction"]),
+                         difference=float(head["Difference"]),
+                         iterations=int(fractions[mode][0].shape[0]))
+    (sim_p, obs_p), (sim_f, obs_f) = fractions["parity"], fractions["fast_cuda"]
+    # the reads' varied spans and end-reaching tracks make both fractions
+    # non-zero, so the comparison below can fail
+    if not (sim_p.mean() > 0 and obs_p.mean() > 0):
+        fail(f"seeBreaks parity: expected {sim_p.mean()}, observed "
+             f"{obs_p.mean()}; both must be non-zero")
+    out["fast_vs_parity"] = dict(
+        expected=within_distribution(np, sim_f, sim_p, "fast vs parity sim"),
+        observed=within_distribution(np, obs_f, obs_p, "fast vs parity obs"))
+
+    p = DNA_R10.seebreaks
+    tols = list(range(p.end_tolerance_r10, p.end_tolerance_r10
+                      + p.end_tolerance_sweep + 1, p.end_tolerance_step))
+    rng = np.random.default_rng(SEED + 600)
+
+    def inputs(n_forks):
+        v5 = rng.integers(0, 100_000_000, n_forks).astype(np.int64)
+        v3 = v5 + rng.integers(20_000, 80_000, n_forks)
+        lens = rng.integers(2000, 9000, n_forks).astype(np.int64)
+        return v5, v3, lens, rng.random(n_forks) < 0.3
+
+    # full width: 5000 iterations x 20,000 forks x the six tolerances
+    v5, v3, lens, runoffs = inputs(20_000)
+    sb.bootstrap_fast_device(v5, v3, lens, runoffs, 10, p.rng_seed,
+                             p.forksense_boundary, tols[0], dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for tol in tols:
+        sim, obs = sb.bootstrap_fast_device(
+            v5, v3, lens, runoffs, p.bootstrap_iterations, p.rng_seed,
+            p.forksense_boundary, tol, dev)
+        if not (np.isfinite(sim).all() and np.isfinite(obs).all()):
+            fail("device bootstrap: non-finite fractions")
+    out["device_bootstrap_full"] = dict(
+        iterations=p.bootstrap_iterations, forks=20_000, tolerances=tols,
+        wall_s=time.perf_counter() - t0,
+        peak_mem_bytes=torch.cuda.max_memory_allocated())
+
+    # 5000 x 4000 at one tolerance: the device grid against numpy's
+    v5, v3, lens, runoffs = inputs(4000)
+    args = (p.bootstrap_iterations, p.rng_seed, p.forksense_boundary,
+            tols[0])
+    t0 = time.perf_counter()
+    sim_np = sb.simulation_fast(v5, v3, lens, 4000, *args)
+    obs_np = sb.observation_fast(runoffs, p.bootstrap_iterations, p.rng_seed)
+    numpy_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sim_dv, obs_dv = sb.bootstrap_fast_device(v5, v3, lens, runoffs, *args,
+                                              dev)
+    device_s = time.perf_counter() - t0
+    out["device_vs_numpy_5000x4000"] = dict(
+        numpy_s=numpy_s, device_s=device_s,
+        sim=within_distribution(np, sim_dv, sim_np, "device vs numpy sim"),
+        obs=within_distribution(np, obs_dv, obs_np, "device vs numpy obs"))
+    return out
 
 
 def main() -> int:
@@ -608,6 +855,13 @@ def main() -> int:
                     absent=("banded_fill",)))
     print("phase 5 fit-stdv path: " + json.dumps(p5), flush=True)
 
+    p6 = dict(modbam=drive(torch, np, models, model, dev, counters, a_to_d,
+                           modbam=True))
+    with tempfile.TemporaryDirectory() as tmp:
+        paths, p6["forksense"] = phase6_forksense(np, tmp)
+        p6["seebreaks"] = phase6_seebreaks(torch, np, dev, paths)
+    print("phase 6 analysis flow: " + json.dumps(p6), flush=True)
+
     # (source, TPU kernel, the path whose launch count the table shows)
     meta = {
         "banded_fill": ("dnascent_tpu_torch/csrc/banded_fill.cu",
@@ -623,7 +877,8 @@ def main() -> int:
         "gru_encoder": ("dnascent_tpu_torch/csrc/gru_encoder.cu",
                         "dnascent_tpu/models/reference_cnn.py:171", p4),
     }
-    paths = {"phase3": p3, "phase4": p4, "phase5": p5}
+    paths = {"phase3": p3, "phase4": p4, "phase5": p5,
+             "phase6": p6["modbam"]}
     kernels = []
     for name, (src, rep, path) in meta.items():
         row = rows[name]

@@ -1,9 +1,11 @@
-"""BAM input: BGZF container + record decoder + CIGAR coordinate maps (the
-reading half of ``dnascent_tpu/io/bam.py``, copied; the port writes no BAM).
+"""BAM I/O: BGZF container + record codec + CIGAR coordinate maps (a copy
+of ``dnascent_tpu/io/bam.py``).
 
 Self-contained (no htslib/pysam): BGZF blocks are gzip members with a BSIZE
-extra field, inflated through zlib; records are parsed with struct/numpy.
-Replaces the reference's htslib usage (reference: src/htsInterface.cpp).
+extra field, inflated and deflated through zlib; records are parsed and
+built with struct/numpy.  Replaces the reference's htslib usage (reference:
+src/htsInterface.cpp) and the modbam tag writer (reference:
+src/reads.h:453-512).
 
 ``parse_cigar`` mirrors htsInterface::parseCigar exactly, including its
 quirks: reverse-strand reads walk the CIGAR backwards so both coordinate
@@ -17,7 +19,7 @@ from __future__ import annotations
 import struct
 import zlib
 from dataclasses import dataclass
-from typing import Iterator
+from typing import Iterator, Optional
 
 import numpy as np
 
@@ -26,6 +28,11 @@ BAM_CSOFT_CLIP, BAM_CHARD_CLIP, BAM_CPAD, BAM_CEQUAL, BAM_CDIFF = 4, 5, 6, 7, 8
 _SEQ_DECODE = np.frombuffer(b"=ACMGRSVTWYHKDBN", dtype=np.uint8)
 FLAG_REVERSE = 0x10
 FLAG_UNMAPPED = 0x4
+FLAG_SECONDARY = 0x100
+FLAG_SUPPLEMENTARY = 0x800
+
+_BGZF_EOF = bytes.fromhex(
+    "1f8b08040000000000ff0600424302001b0003000000000000000000")
 
 
 # ---------------------------------------------------------------------------
@@ -77,6 +84,37 @@ class BGZFReader:
         return out
 
     def close(self):
+        self._fh.close()
+
+
+class BGZFWriter:
+    def __init__(self, path: str, level: int = 6):
+        self._fh = open(path, "wb")
+        self._level = level
+        self._pending = bytearray()
+
+    def write(self, data: bytes) -> None:
+        self._pending += data
+        while len(self._pending) >= 65280:
+            self._flush_block(self._pending[:65280])
+            del self._pending[:65280]
+
+    def _flush_block(self, chunk: bytes) -> None:
+        co = zlib.compressobj(self._level, zlib.DEFLATED, -15)
+        cdata = co.compress(bytes(chunk)) + co.flush()
+        bsize = len(cdata) + 25 + 1
+        # gzip magic + flags, XLEN=6, the BC extra field holding BSIZE-1
+        header = (b"\x1f\x8b\x08\x04" + b"\x00" * 4 + b"\x00\xff"
+                  + struct.pack("<H", 6) + b"BC" + struct.pack("<HH", 2, bsize - 1))
+        self._fh.write(header + cdata
+                       + struct.pack("<II", zlib.crc32(bytes(chunk)),
+                                     len(chunk) & 0xFFFFFFFF))
+
+    def close(self) -> None:
+        if self._pending:
+            self._flush_block(bytes(self._pending))
+            self._pending.clear()
+        self._fh.write(_BGZF_EOF)
         self._fh.close()
 
 
@@ -152,6 +190,9 @@ class BamRecord:
         l_qname, n_cigar, l_seq = f[2], f[5], f[7]
         return 32 + l_qname + 4 * n_cigar + (l_seq + 1) // 2 + l_seq
 
+    def aux_bytes(self) -> bytes:
+        return self.raw[self._aux_offset():]
+
     def iter_tags(self):
         """Yields (tag, type_char, value, span) over the aux region."""
         data = self.raw
@@ -200,6 +241,32 @@ class BamRecord:
                 return val
         return None
 
+    def with_tags_replaced(self, remove: list[str],
+                           append: bytes) -> "BamRecord":
+        """New record with listed tags removed and raw aux bytes appended."""
+        spans = [sp for tag, _, _, sp in self.iter_tags() if tag in remove]
+        raw = bytearray(self.raw[: self._aux_offset()])
+        data = self.raw
+        keep = bytearray()
+        last = self._aux_offset()
+        for s, e in spans:
+            keep += data[last:s]
+            last = e
+        keep += data[last:]
+        raw += keep + append
+        return BamRecord(bytes(raw))
+
+
+def encode_tag_Z(tag: str, value: str) -> bytes:
+    return tag.encode() + b"Z" + value.encode() + b"\x00"
+
+
+def encode_tag_array_u8(tag: str, values) -> bytes:
+    arr = np.asarray(values, dtype=np.uint8)
+    return (tag.encode() + b"B" + b"C" + struct.pack("<I", arr.shape[0])
+            + arr.tobytes())
+
+
 class BamReader:
     def __init__(self, path: str):
         self._r = BGZFReader(path)
@@ -229,6 +296,59 @@ class BamReader:
 
     def close(self):
         self._r.close()
+
+
+class BamWriter:
+    def __init__(self, path: str, header_text: str, ref_names: list[str],
+                 ref_lengths: list[int]):
+        self._w = BGZFWriter(path)
+        body = bytearray(b"BAM\x01")
+        text = header_text.encode("ascii")
+        body += struct.pack("<i", len(text)) + text
+        body += struct.pack("<i", len(ref_names))
+        for name, ln in zip(ref_names, ref_lengths):
+            nb = name.encode("ascii") + b"\x00"
+            body += struct.pack("<i", len(nb)) + nb + struct.pack("<i", ln)
+        self._w.write(bytes(body))
+
+    def write_record(self, rec: BamRecord) -> None:
+        self._w.write(struct.pack("<i", len(rec.raw)) + rec.raw)
+
+    def close(self) -> None:
+        self._w.close()
+
+
+_SEQ_ENCODE = {c: i for i, c in enumerate("=ACMGRSVTWYHKDBN")}
+
+
+def build_record(qname: str, ref_id: int, pos: int, mapq: int,
+                 cigar: list[tuple[int, int]], seq: str, flag: int = 0,
+                 qual: Optional[bytes] = None, aux: bytes = b"") -> BamRecord:
+    """Construct a BAM record from scratch (for writers/tests).
+
+    ``cigar`` is a list of (op, length); ``seq`` in reference-forward
+    orientation as SAM stores it.
+    """
+    qname_b = qname.encode("ascii") + b"\x00"
+    n = len(seq)
+    packed = np.zeros((n + 1) // 2, dtype=np.uint8)
+    codes = np.array([_SEQ_ENCODE.get(c, 15) for c in seq], dtype=np.uint8)
+    hi = codes[0::2]
+    lo = codes[1::2]
+    packed[: hi.shape[0]] |= hi << 4
+    packed[: lo.shape[0]] |= lo
+    if qual is None:
+        qual = b"\xff" * n  # 0xff = missing quality
+    body = bytearray()
+    body += struct.pack("<iiBBHHHiiii", ref_id, pos, len(qname_b),
+                        mapq, 0, len(cigar), flag, n, -1, -1, 0)
+    body += qname_b
+    for op, ol in cigar:
+        body += struct.pack("<I", (ol << 4) | op)
+    body += packed.tobytes()
+    body += qual
+    body += aux
+    return BamRecord(bytes(body))
 
 
 # ---------------------------------------------------------------------------

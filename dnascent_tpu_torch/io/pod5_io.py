@@ -174,6 +174,24 @@ def _uuid_strs(col) -> list[str]:
     return out
 
 
+def pod5_extract_read_ids(path: str) -> list[tuple[str, int, int]]:
+    """(read_id, batch, row) triples for the index
+    (pod5_extract_readIDs, pod5.cpp:241-305).  Batches follow the read-table
+    record batches."""
+    t = _open_tables_cached(path)
+    out = []
+    row_global = 0
+    reader_ids = _uuid_strs(t.reads.column("read_id"))
+    # reconstruct batch structure: pyarrow Table keeps chunks
+    batch_idx = 0
+    for chunk in t.reads.column("read_id").chunks:
+        for row in range(len(chunk)):
+            out.append((reader_ids[row_global], batch_idx, row))
+            row_global += 1
+        batch_idx += 1
+    return out
+
+
 def pod5_get_signal(path: str, read_id: str, batch: int | None = None,
                     row: int | None = None) -> np.ndarray:
     """Full raw signal in pA for a read (pod5_getSignal, pod5.cpp:24-106)."""

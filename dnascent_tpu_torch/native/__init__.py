@@ -1,8 +1,8 @@
 """ctypes loader for the port's host C++ library (``dnascent_native.cpp``).
 
 A copy of the entries of ``dnascent_tpu/native`` that the port calls: event
-detection, the chase's move decode, and the eventalign window chain and
-window post-processing.  The library is built with ``g++`` at first use into
+detection, the chase's move decode, the eventalign window chain and window
+post-processing, and seeBreaks' libstdc++-exact bootstrap streams.  The library is built with ``g++`` at first use into
 ``build/torch_native/`` at the repository root (never into the package), and
 rebuilt when the source is newer than the library.  ``available()`` is False
 when it cannot be built or loaded; prep then decodes moves with the numpy
@@ -51,6 +51,7 @@ def _load():
                 _build()
             lib = ctypes.CDLL(_LIB)
             i64 = ctypes.c_int64
+            u32 = ctypes.c_uint32
             f32 = ctypes.c_float
             f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
             f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
@@ -82,6 +83,17 @@ def _load():
                 u8p, i64, i64, i64, i64, i64,
                 f64p, f32p, f32p, f32p, f32p, i64p, i64p, i64,
                 i64p, i64, f64p, i64p, f64p,
+            ]
+            lib.seebreaks_simulation.restype = None
+            lib.seebreaks_simulation.argtypes = [
+                i64p, i64p, i64, i64p, i64, i64, i64, u32, i64, i64, f64p,
+            ]
+            lib.seebreaks_observation.restype = None
+            lib.seebreaks_observation.argtypes = [u8p, i64, u32, i64, f64p]
+            lib.seebreaks_difference.restype = None
+            lib.seebreaks_difference.argtypes = [
+                ctypes.c_double, ctypes.c_double, ctypes.c_double,
+                ctypes.c_double, i64, u32, f64p,
             ]
             _lib = lib
         except Exception as e:  # pragma: no cover

@@ -2,8 +2,9 @@
 //
 // A copy of the entries of dnascent_tpu/native/dnascent_native.cpp that the
 // port calls: the scrappie event-detection FSM (prep), the decode of the
-// backtrace chase's packed move stream (prep), and the fast-mode eventalign
-// window chain and window post-processing (eventalign).  These are cheap but
+// backtrace chase's packed move stream (prep), the fast-mode eventalign
+// window chain and window post-processing (eventalign), and the
+// libstdc++-exact RNG streams of seeBreaks' parity mode.  These are cheap but
 // sequential host steps; they run with the GIL released through ctypes.
 //
 // Plain C ABI, loaded through ctypes by native/__init__.py, which builds it
@@ -14,6 +15,7 @@
 #include <cfloat>
 #include <cmath>
 #include <cstdint>
+#include <random>
 #include <vector>
 
 extern "C" {
@@ -363,6 +365,67 @@ done:
     stats_out[3] = (double)n_pairs;
     stats_out[4] = (double)n_cleaned;
     return m;
+}
+
+// ---------------------------------------------------------------------------
+// libstdc++-exact RNG streams for seeBreaks parity (seeBreaks.cpp:430-502)
+// ---------------------------------------------------------------------------
+
+// Simulation bootstrap: for each of bs_iterations, draw nForks
+// (read, trackLength, start) triples and count run-offs
+// (seeBreaks.cpp:430-474).  Uses std::mt19937 + std::uniform_int_distribution
+// so results are bit-identical to the reference under libstdc++.
+void seebreaks_simulation(const int64_t* v5, const int64_t* v3, int64_t n_reads,
+                          const int64_t* fork_len, int64_t n_lens,
+                          int64_t n_forks, int64_t bs_iterations, uint32_t seed,
+                          int64_t fs_boundary, int64_t read_end_tolerance,
+                          double* out_run_off_props) {
+    std::mt19937 gen(seed);
+    for (int64_t i = 0; i < bs_iterations; ++i) {
+        int64_t run_off = 0;
+        for (int64_t j = 0; j < n_forks; ++j) {
+            std::uniform_int_distribution<> read_dist(0, (int)(n_reads - 1));
+            int64_t ri = read_dist(gen);
+            int64_t r5 = v5[ri], r3 = v3[ri];
+            std::uniform_int_distribution<> track_dist(0, (int)(n_lens - 1));
+            int64_t random_len = fork_len[track_dist(gen)];
+            std::uniform_int_distribution<> start_dist((int)(r5 + fs_boundary),
+                                                       (int)(r3 - fs_boundary));
+            int64_t start = start_dist(gen);
+            if (r3 - read_end_tolerance - start < random_len) ++run_off;
+        }
+        out_run_off_props[i] = (double)run_off / (double)n_forks;
+    }
+}
+
+// Observation bootstrap (seeBreaks.cpp:476-502).
+void seebreaks_observation(const uint8_t* run_off, int64_t n, uint32_t seed,
+                           int64_t bs_iterations, double* out_props) {
+    std::mt19937 gen(seed);
+    for (int64_t i = 0; i < bs_iterations; ++i) {
+        int64_t obs = 0, no_obs = 0;
+        for (int64_t j = 0; j < n; ++j) {
+            std::uniform_int_distribution<> dist(0, (int)(n - 1));
+            int64_t ri = dist(gen);
+            if (run_off[ri]) ++obs; else ++no_obs;
+        }
+        out_props[i] = (double)obs / (double)(obs + no_obs);
+    }
+}
+
+// Difference distribution (seeBreaks.cpp:592-599): normal draws with the
+// seeded generator.
+void seebreaks_difference(double obs_mean, double obs_std, double sim_mean,
+                          double sim_std, int64_t n, uint32_t seed,
+                          double* out_diff) {
+    std::mt19937 gen(seed);
+    for (int64_t i = 0; i < n; ++i) {
+        std::normal_distribution<double> obs_d(obs_mean, obs_std);
+        std::normal_distribution<double> sim_d(sim_mean, sim_std);
+        double a = obs_d(gen);
+        double b = sim_d(gen);
+        out_diff[i] = a - b;
+    }
 }
 
 }  // extern "C"

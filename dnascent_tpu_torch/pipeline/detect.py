@@ -42,9 +42,7 @@ DetectModel = Union[cnn_mod.DetectCNN, ReferenceDetectCNN]
 
 @dataclass
 class DetectedRead:
-    """Per-read detect output (the call side of DNAscent::read).  The
-    query-side fields the JAX package's modbam writer reads are not kept:
-    the modbam output is not ported yet."""
+    """Per-read detect output (the call side of DNAscent::read)."""
 
     record: ReadRecord
     # per output position (centre base T), in aligned-position order
@@ -52,6 +50,11 @@ class DetectedRead:
     edu_prob: np.ndarray        # (C,) float32
     brdu_prob: np.ndarray       # (C,) float32
     kmer_starts: np.ndarray     # (C,) int64 into record.reference_seq
+    # modbam side: per-position query indices in sequencing orientation,
+    # filtered by the deletion mask (detect.cpp:704)
+    query_indices: np.ndarray   # (Cq,) int64
+    edu_prob_q: np.ndarray
+    brdu_prob_q: np.ndarray
     _kmers: Optional[list] = None
 
     @property
@@ -221,11 +224,15 @@ def collect_calls(rec: ReadRecord, pos: AlignedPositions,
     """Per-read call table from the centre-T probabilities (columns [BrdU,
     EdU]; detect.cpp:686-714)."""
     sel = pos.center_is_T
+    brdu = probs_t[:, 0].astype(np.float32)
+    edu = probs_t[:, 1].astype(np.float32)
+    # modbam side: skip positions whose reference index is in a deletion
+    qsel_t = ~rec.ref_to_del[pos.ref_idx[sel]]
     return DetectedRead(
-        record=rec, ref_coords=pos.coord[sel],
-        edu_prob=probs_t[:, 1].astype(np.float32),
-        brdu_prob=probs_t[:, 0].astype(np.float32),
-        kmer_starts=pos.kmer_start[sel])
+        record=rec, ref_coords=pos.coord[sel], edu_prob=edu, brdu_prob=brdu,
+        kmer_starts=pos.kmer_start[sel],
+        query_indices=pos.query_idx[sel][qsel_t],
+        edu_prob_q=edu[qsel_t], brdu_prob_q=brdu[qsel_t])
 
 
 def detect_reads(records: Iterable[ReadRecord], models: PoreModelSet,

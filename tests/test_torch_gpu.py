@@ -286,3 +286,66 @@ def test_reference_detect_cuda_matches_cpu(cuda, models):
         np.testing.assert_array_equal(cpu[rid].ref_coords, gpu[rid].ref_coords)
         np.testing.assert_allclose(cpu[rid].brdu_prob, gpu[rid].brdu_prob,
                                    atol=0.05)
+
+
+def test_seebreaks_device_bootstrap_matches_numpy(cuda):
+    """seeBreaks' device bootstrap (``--fast`` on the card) against the
+    numpy bootstrap in distribution: means within 5 standard errors + 1e-3,
+    spreads within 15 % (its stream differs from numpy's)."""
+    from dnascent_tpu_torch.pipeline import seebreaks as sb
+    rng = np.random.default_rng(7)
+    n_reads, n_forks, iters = 200, 150, 4000
+    v5 = rng.integers(0, 100000, n_reads).astype(np.int64)
+    v3 = v5 + rng.integers(40000, 90000, n_reads)
+    lens = rng.integers(2000, 9000, 300).astype(np.int64)
+    runoffs = rng.random(n_forks) < 0.3
+    sim_np = sb.simulation_fast(v5, v3, lens, n_forks, iters, 5, 2000, 300)
+    obs_np = sb.observation_fast(runoffs, iters, 5)
+    sim_dv, obs_dv = sb.bootstrap_fast_device(v5, v3, lens, runoffs, iters,
+                                              5, 2000, 300, cuda)
+    assert sim_dv.shape == obs_dv.shape == (iters,)
+    for got, want in ((sim_dv, sim_np), (obs_dv, obs_np)):
+        se = want.std(ddof=1) / np.sqrt(iters)
+        assert abs(got.mean() - want.mean()) < 5 * se + 1e-3
+        assert abs(got.std() - want.std()) < 0.15 * max(want.std(), 1e-3)
+
+
+def test_seebreaks_fast_cuda_cli(cuda, tmp_path):
+    """``forkSense`` on the synthetic fork set, then ``seeBreaks --fast``
+    with its default device, the card: a well-formed ``.seeBreaks`` file
+    (every iteration of the six end tolerances, finite fractions)."""
+    import contextlib
+    import io
+    import os
+    import subprocess
+    import sys
+    from dnascent_tpu_torch import cli
+    from dnascent_tpu_torch.testing.forks import fork_reads, write_detect_file
+
+    detect = str(tmp_path / "forks.detect")
+    write_detect_file(fork_reads(12, 12), detect)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run(
+        [sys.executable, "-m", "dnascent_tpu_torch", "forkSense", "-d",
+         detect, "-o", str(tmp_path / "out.forkSense"), "--order",
+         "EdU,BrdU", "--markForks", "--markAnalogues"], cwd=tmp_path,
+        env=dict(os.environ, PYTHONPATH=root), capture_output=True,
+        text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    out = str(tmp_path / "out.seeBreaks")
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert cli.main(["seeBreaks", "-r",
+                         str(tmp_path / "rightForks_DNAscent_forkSense.bed"),
+                         "-a", str(tmp_path / "BrdU_DNAscent_forkSense.bed"),
+                         "-d", detect, "-o", out, "--fast"]) == 0
+    with open(out) as fh:
+        text = fh.read()
+    assert "#nForks 12\n" in text
+    sections = text.split(">")[1:]
+    assert [s.split("\n", 1)[0] for s in sections] == [
+        "ExpectedReadEndFractions:", "ObservedReadEndFractions:"]
+    for s in sections:
+        vals = np.array([float(v) for v in s.split("\n")[1:] if v])
+        assert vals.shape == (6 * DNA_R10.seebreaks.bootstrap_iterations,)
+        assert np.isfinite(vals).all() and (vals >= 0).all() \
+            and (vals <= 1).all()

@@ -1,9 +1,11 @@
 """The port's own host layer against the JAX package's originals, on the CPU.
 
 The port carries copies of the host modules it needs (config, sequence
-tools, pore models, read sources and their signal readers, index and FASTA
+tools, pore models, read sources and their signal readers, the index
+reader and writer, the FASTA reader, the BAM and modbam writers and
 readers, the native library, quantile scaling, the SavedModel reader and
-writer), so that it imports nothing of ``dnascent_tpu``.  Each copy must
+writer, the window ordering of forkSense, the synthetic fork reads), so
+that it imports nothing of ``dnascent_tpu``.  Each copy must
 give what the original gives on the same inputs: the golden dataset
 (``build_dataset(..., n_reads=4, read_length=1500, signal_format="fast5",
 seed=11)``) and seeded numpy data.  Equality is exact throughout.
@@ -274,3 +276,195 @@ def test_savedmodel_reader_and_writer_equal(tmp_path):
     for k in a:
         np.testing.assert_array_equal(b[k], a[k])
         np.testing.assert_array_equal(b[k], tensors[k])
+
+
+def _bam_records(rng, n=6, length=400):
+    """Forward and reverse records whose CIGARs carry deletions, insertions
+    and soft clips, some with MM/ML tags already present."""
+    from dnascent_tpu.io import bam as jb
+    recs = []
+    for i in range(n):
+        seq = "".join(rng.choice(list("ACGT"), length))
+        cigar = [(jb.BAM_CSOFT_CLIP, 5), (jb.BAM_CMATCH, 150),
+                 (jb.BAM_CDEL, 3 + i), (jb.BAM_CMATCH, 100),
+                 (jb.BAM_CINS, 4), (jb.BAM_CMATCH, length - 259)]
+        aux = jb.encode_tag_Z("XX", f"tag{i}")
+        if i % 3 == 2:
+            aux += (jb.encode_tag_Z("MM", "C+m?,0,2;")
+                    + jb.encode_tag_array_u8("ML", [7, 250]))
+        recs.append(jb.build_record(
+            f"read-{i}", 0, 1000 + 37 * i, 60, cigar, seq,
+            flag=jb.FLAG_REVERSE if i % 2 else 0, aux=aux))
+    return recs
+
+
+def _modbam_calls(rng, rec):
+    """Seeded query indices (ascending, inside the query) and probabilities
+    for one record."""
+    idx = np.sort(rng.choice(rec.l_seq, 60, replace=False)).astype(np.int64)
+    return idx, rng.random(60).astype(np.float32), \
+        rng.random(60).astype(np.float32)
+
+
+def test_bam_writer_equal(tmp_path):
+    """Records built, re-tagged with MM/ML and written through the JAX
+    package's BAM writer and the port's give equal file bytes (more than one
+    BGZF block)."""
+    from dnascent_tpu.io import bam as jb, modbam as jm
+    from dnascent_tpu_torch.io import bam as tb, modbam as tm
+    rng = np.random.default_rng(11)
+    recs = _bam_records(rng, n=200)
+    header = "@HD\tVN:1.6\tSO:unknown\n@SQ\tSN:chrS\tLN:60000\n"
+    paths = []
+    for bam, modbam, name in ((jb, jm, "jax.bam"), (tb, tm, "port.bam")):
+        w = bam.BamWriter(str(tmp_path / name), header, ["chrS"], [60000])
+        calls = np.random.default_rng(12)
+        for r in recs:
+            rec = bam.build_record(r.qname, r.ref_id, r.pos, r.mapq,
+                                   [tuple(c) for c in r.cigar()], r.seq(),
+                                   flag=r.flag, aux=r.aux_bytes())
+            assert rec.raw == r.raw
+            idx, edu, brdu = _modbam_calls(calls, rec)
+            aux = modbam.build_modbam_tags(idx, edu, brdu,
+                                           rec.get_tag("MM") or "",
+                                           rec.get_tag("ML"))
+            w.write_record(rec.with_tags_replaced(["MM", "ML"], aux))
+        w.close()
+        paths.append(tmp_path / name)
+    a, b = (p.read_bytes() for p in paths)
+    assert a == b and len(a) > 65280
+
+
+@pytest.mark.parametrize("strand", ["fwd", "rev"])
+def test_modbam_tags_and_reader_equal(strand):
+    """build_modbam_tags and detected_read_from_bam of both packages on
+    records with deletions, insertions and soft clips."""
+    from dnascent_tpu.io import modbam as jm
+    from dnascent_tpu_torch.io import modbam as tm
+    rng = np.random.default_rng(13)
+    recs = [r for r in _bam_records(rng) if r.is_reverse == (strand == "rev")]
+    for rec in recs:
+        idx, edu, brdu = _modbam_calls(rng, rec)
+        args = (idx, edu, brdu, rec.get_tag("MM") or "", rec.get_tag("ML"))
+        aux = jm.build_modbam_tags(*args)
+        assert tm.build_modbam_tags(*args) == aux
+        tagged = rec.with_tags_replaced(["MM", "ML"], aux)
+        a = jm.detected_read_from_bam(tagged, ["chrS"])
+        b = tm.detected_read_from_bam(tagged, ["chrS"])
+        assert a.strand == b.strand == strand and a.coords.size
+        for f in dataclasses.fields(a):
+            va, vb = getattr(a, f.name), getattr(b, f.name)
+            if isinstance(va, np.ndarray):
+                np.testing.assert_array_equal(va, vb, err_msg=f.name)
+            else:
+                assert va == vb, f.name
+
+
+@pytest.mark.parametrize("deletions", [False, True])
+def test_collect_calls_query_fields_equal(dataset, port_models, deletions):
+    """collect_calls of both packages on the golden dataset's reads (the
+    port's positions and seeded probabilities): the query-side modbam
+    fields equal; with ``deletions`` a seeded tenth of each read's reference
+    positions is marked deleted, so the mask drops calls."""
+    import torch
+    from dnascent_tpu.pipeline.detect import collect_calls as jcc
+    from dnascent_tpu_torch.io.fasta import import_reference
+    from dnascent_tpu_torch.io.index_io import parse_index
+    from dnascent_tpu_torch.pipeline import eventalign as tea, prep as tprep
+    from dnascent_tpu_torch.pipeline.detect import collect_calls as tcc
+    from dnascent_tpu_torch.pipeline.source import BamSignalSource
+
+    torch.set_num_threads(2)
+    recs = list(BamSignalSource(dataset.bam,
+                                import_reference(dataset.reference_fa),
+                                parse_index(dataset.index), min_length=1000))
+    pp = tprep.prepare_reads(recs, port_models, DNA_R10, device="cpu")
+    results = tea.run_eventalign(pp, port_models, DNA_R10)
+    rng = np.random.default_rng(14)
+    n_dropped = 0
+    for rec in recs:
+        pos = results[rec.read_id].positions
+        if deletions:
+            rec = dataclasses.replace(
+                rec, ref_to_del=rng.random(rec.ref_to_del.shape[0]) < 0.1)
+        probs = rng.random((int(pos.center_is_T.sum()), 2)).astype(np.float32)
+        a, b = jcc(rec, pos, probs), tcc(rec, pos, probs)
+        for name in ("ref_coords", "edu_prob", "brdu_prob", "kmer_starts",
+                     "query_indices", "edu_prob_q", "brdu_prob_q"):
+            va, vb = getattr(a, name), getattr(b, name)
+            assert va.dtype == vb.dtype, name
+            np.testing.assert_array_equal(va, vb, err_msg=name)
+        n_dropped += a.ref_coords.shape[0] - a.query_indices.shape[0]
+    assert (n_dropped > 0) == deletions
+
+
+@pytest.mark.parametrize("source", ["fast5", "pod5", "summary"])
+def test_index_cli_equal(tmp_path, models, dataset, source):
+    """``index`` of both CLIs on the golden fast5 dataset, on a pod5 dataset
+    and with a sequencing summary: equal index files."""
+    from dnascent_tpu import cli as jcli
+    from dnascent_tpu_torch import cli as tcli
+    signal_dir = dataset.signal_dir
+    extra = []
+    if source == "pod5":
+        signal_dir = build_dataset(str(tmp_path / "pod5"), models, n_reads=3,
+                                   read_length=600, signal_format="pod5",
+                                   seed=4).signal_dir
+    elif source == "summary":
+        summary = tmp_path / "sequencing_summary.txt"
+        from dnascent_tpu.io.index_io import parse_index
+        ids = sorted(parse_index(dataset.index))
+        summary.write_text("filename\tread_id\n" + "".join(
+            f"batch0.fast5\t{rid}\n" for rid in ids))
+        extra = ["-s", str(summary)]
+    outs = []
+    for cli, name in ((jcli, "jax.idx"), (tcli, "port.idx")):
+        out = str(tmp_path / name)
+        assert cli.main(["index", "-f", signal_dir, "-o", out, *extra]) == 0
+        outs.append(open(out).read())
+    assert outs[0] == outs[1] and outs[0].count("\n") >= 3
+
+
+def test_native_seebreaks_equal():
+    """The three libstdc++-RNG entries of seeBreaks' parity mode, bitwise
+    against the JAX package's native library on the same inputs."""
+    from dnascent_tpu import native as jn
+    from dnascent_tpu_torch import native as tn
+    rng = np.random.default_rng(16)
+    v5 = rng.integers(0, 100000, 300).astype(np.int64)
+    v3 = v5 + rng.integers(40000, 90000, 300)
+    lens = rng.integers(2000, 9000, 120).astype(np.int64)
+    runoffs = (rng.random(90) < 0.3).astype(np.uint8)
+    out = []
+    for lib in (jn.get_lib(), tn.get_lib()):
+        sim = np.empty(700)
+        lib.seebreaks_simulation(v5, v3, v5.shape[0], lens, lens.shape[0],
+                                 runoffs.shape[0], sim.shape[0], 221005, 2000,
+                                 300, sim)
+        obs = np.empty(700)
+        lib.seebreaks_observation(runoffs, runoffs.shape[0], 221005,
+                                  obs.shape[0], obs)
+        diff = np.empty(900)
+        lib.seebreaks_difference(0.3, 0.04, 0.1, 0.02, diff.shape[0], 221005,
+                                 diff)
+        out.append((sim, obs, diff))
+    for x, y in zip(*out):
+        assert np.isfinite(x).all() and np.unique(x).size > 1
+        np.testing.assert_array_equal(x, y)
+
+
+def test_fork_reads_equal():
+    """The port's synthetic fork reads (testing/forks.py) are the forkSense
+    tests' ``_synthetic_read``."""
+    from tests.test_forksense import _synthetic_read
+    from dnascent_tpu_torch.testing import forks
+    got = forks.fork_reads(3, 2)
+    want = ([_synthetic_read(seed=i, tracks=forks.RIGHT_FORK,
+                             read_id=f"rf-{i}") for i in range(3)]
+            + [_synthetic_read(seed=100 + i, tracks=forks.LEFT_FORK,
+                               read_id=f"lf-{i}") for i in range(2)])
+    for a, b in zip(got, want, strict=True):
+        for name in ("read_id", "contig", "ref_start", "ref_end", "strand"):
+            assert getattr(a, name) == getattr(b, name)
+        for name in ("coords", "edu", "brdu"):
+            np.testing.assert_array_equal(getattr(a, name), getattr(b, name))

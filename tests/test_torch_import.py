@@ -34,8 +34,11 @@ sys.meta_path.insert(0, _Block())
 import numpy as np, torch
 import dnascent_tpu_torch
 import dnascent_tpu_torch.cli, dnascent_tpu_torch.__main__
-from dnascent_tpu_torch.pipeline import detect, eventalign, prep
-from dnascent_tpu_torch.io import writers
+from dnascent_tpu_torch.pipeline import (detect, eventalign, forksense,
+                                         prep, seebreaks)
+from dnascent_tpu_torch.io import index_io, modbam, writers
+from dnascent_tpu_torch.testing import forks
+from dnascent_tpu_torch.tools import bedgraph
 from dnascent_tpu_torch.models import cnn, reference_cnn
 from dnascent_tpu_torch.ops import banded_cuda, gru_cuda, viterbi_cuda
 rng = np.random.default_rng(0)
@@ -111,14 +114,20 @@ def test_no_source_file_imports_the_jax_package():
 def test_cli_refuses_unported_features(tmp_path, capsys):
     from dnascent_tpu_torch import cli
     base = ["detect", "-b", "x.bam", "-r", "x.fa", "-i", "x.idx"]
-    for extra in (["-o", str(tmp_path / "o.bam")],
-                  ["-o", str(tmp_path / "o.detect"), "--HMM"],
-                  ["-o", str(tmp_path / "o.detect"), "--strict-windows"],
-                  ["-o", str(tmp_path / "o.detect"), "--nprocs", "2"]):
-        assert cli.main(base + extra) == 1
+    fork_sense = ["forkSense", "-d", "x.detect", "-o", str(tmp_path / "o.fs"),
+                  "--order", "EdU,BrdU"]
+    see_breaks = ["seeBreaks", "-r", "r.bed", "-a", "a.bed", "-d", "x.detect",
+                  "-o", str(tmp_path / "o.seeBreaks")]
+    for argv in (base + ["-o", str(tmp_path / "o.detect"), "--HMM"],
+                 base + ["-o", str(tmp_path / "o.detect"), "--strict-windows"],
+                 base + ["-o", str(tmp_path / "o.bam"), "--nprocs", "2"],
+                 fork_sense + ["--nprocs", "2"],
+                 see_breaks + ["--nprocs", "2"],
+                 see_breaks + ["--fast", "--coordinator", "h:1"],
+                 ["align"], ["trainCNN"], ["trainGMM"]):
+        assert cli.main(argv) == 1
         assert "Not ported" in capsys.readouterr().err
     assert not list(tmp_path.iterdir())
-    assert cli.main(["align"]) == 1
     assert cli.main(["detect", *base[1:], "-o", "o.txt"]) == 1
     # --model is ported: a missing SavedModel directory is an input error,
     # raised before any input is read
