@@ -48,7 +48,26 @@ Phases, one line each:
      fractions must be non-zero) and with ``--fast`` on CUDA, the
      device bootstrap alone at 5000 iterations x 20,000 forks x the six end
      tolerances, and at 5000 x 4000 against the numpy bootstrap in
-     distribution.
+     distribution;
+  7. align and the training tables, on simulated in-memory reads: (a) 32
+     reads of 10 kb, half of them reverse, at batch 32 through
+     ``align_reads`` on CUDA in strict mode (the reference's window
+     coupling: kernels C and D once a wavefront round), written as
+     ``.align``; kernels A-D must have launched, C and D as often as each
+     other; prints the rounds, the (W, T, N) and host time of each round,
+     rows, wall, reads/s and peak memory; (b) the same reads in fast mode
+     (``--fast-windows``), the two modes run in turns (strict, fast, fast,
+     strict), and the strict/fast wall ratio; (c) four 2 kb reads, strict
+     and fast, on CUDA and on the CPU: the same rows in the same order,
+     coordinate and k-mer columns equal, numeric columns within 1e-5, the
+     texts byte-equal; (d) trainCNN's tables of 8 of (a)'s reads with phase 3's
+     DetectCNN: with the two call columns removed, (b)'s text for those
+     reads byte for byte; exactly the rows of centre-T k-mers carry calls,
+     in [0, 1]; (e) trainGMM's EM (``em_prior_batch``) on CUDA over two
+     chunks of 2048 k-mers x 10,000 events of seeded two-component
+     mixtures, its time and peak memory, and against the CPU on a 256-k-mer
+     slice within 1e-5; ``train_gmm`` end to end over 512 k-mers, its table
+     written and read back with ``import_traingmm_model``.
 Each path's launch counts are set to 0 just before it and read just after.
 The shapes of phases 3-5 (each path's C launches and F's live-step
 histogram, recorded by observers around the wrappers) show whether phase
@@ -458,12 +477,16 @@ class PathShapes:
     def __init__(self, torch):
         from dnascent_tpu_torch.models import reference_cnn
         from dnascent_tpu_torch.ops import gru, viterbi_cuda
+        from dnascent_tpu_torch.pipeline import eventalign
         self.fill_shapes = []
         self.live_hist = None
+        self.round_windows = []
+        self.round_s = []
         self._patches = [(viterbi_cuda, "viterbi_fill_codes"),
-                         (reference_cnn, "gru_encoder")]
+                         (reference_cnn, "gru_encoder"),
+                         (eventalign, "_strict_round")]
         self._orig = [getattr(m, n) for m, n in self._patches]
-        fill, encoder = self._orig
+        fill, encoder, strict_round = self._orig
 
         def fill_observed(obs_T, mu, *args):
             self.fill_shapes.append([obs_T.shape[1], obs_T.shape[0],
@@ -477,7 +500,14 @@ class PathShapes:
                               else self.live_hist + hist)
             return encoder(xq, w)
 
-        self._wrapped = [fill_observed, encoder_observed]
+        def round_observed(windows, *args):
+            t0 = time.perf_counter()
+            out = strict_round(windows, *args)
+            self.round_s.append(time.perf_counter() - t0)
+            self.round_windows.append(len(windows))
+            return out
+
+        self._wrapped = [fill_observed, encoder_observed, round_observed]
 
     def __enter__(self):
         for (m, n), fn in zip(self._patches, self._wrapped):
@@ -491,8 +521,12 @@ class PathShapes:
     def report(self) -> dict:
         hist = (None if self.live_hist is None
                 else self.live_hist.cpu().tolist())
-        return dict(viterbi_fill_WTN=self.fill_shapes,
-                    gru_live_steps_hist=hist)
+        out = dict(viterbi_fill_WTN=self.fill_shapes,
+                   gru_live_steps_hist=hist)
+        if self.round_windows:
+            out["strict_round_windows"] = self.round_windows
+            out["strict_round_s"] = self.round_s
+        return out
 
 
 def with_bam_records(records):
@@ -785,6 +819,283 @@ def phase6_seebreaks(torch, np, dev, paths):
     return out
 
 
+def align_records(models, n_reads, length, seed):
+    """Simulated reads, every second one on the reverse strand (sequence
+    and signal stay in sequencing orientation; only the genome mapping
+    flips, as the BAM source delivers reverse reads)."""
+    from dnascent_tpu_torch.config import DNA_R10
+    from dnascent_tpu_torch.pipeline.source import SimulatedSource
+    return [dataclasses.replace(r, is_reverse=i % 2 == 1)
+            for i, r in enumerate(SimulatedSource(
+                models, DNA_R10, n_reads=n_reads, length=length, seed=seed))]
+
+
+def check_table(np, rid, text, call_columns=False):
+    """A read's eventalign table: its header, then rows of five columns
+    (seven on call rows with ``call_columns``), finite values.  Returns
+    the row count."""
+    lines = text.split("\n")
+    if not (lines[0].startswith(f">{rid} ") and lines[-1] == ""):
+        fail(f"{rid}: malformed eventalign table head or tail")
+    rows = [line.split("\t") for line in lines[1:-1]]
+    widths = {len(r) for r in rows}
+    if not rows or not widths <= ({5, 7} if call_columns else {5}):
+        fail(f"{rid}: eventalign rows of {sorted(widths)} columns")
+    vals = np.array([float(r[2]) for r in rows])
+    if not np.isfinite(vals).all():
+        fail(f"{rid}: non-finite scaled samples")
+    return len(rows)
+
+
+def align_drive(torch, np, models, dev, counters, records, strict, out_path,
+                keep=()):
+    """``records`` through ``align_reads`` on CUDA at batch 32, strict or
+    fast, written as ``.align``; every read must pass.  Returns (the texts
+    of the read ids in ``keep``, the run's record)."""
+    from dnascent_tpu_torch.config import DNA_R10
+    from dnascent_tpu_torch.io.writers import AlignHRWriter
+    from dnascent_tpu_torch.pipeline.align import align_reads
+    from dnascent_tpu_torch.pipeline.detect import DetectStats
+
+    stats = DetectStats()
+    kept, n_rows = {}, 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    with PathShapes(torch) as shapes, AlignHRWriter(out_path) as w:
+        for rid, text in align_reads(iter(records), models, DNA_R10,
+                                     device=dev, strict=strict,
+                                     batch_size=32, stats=stats):
+            if text is None:
+                fail(f"{rid}: failed QC in align")
+            w.write_text(text)
+            n_rows += text.count("\n") - 1
+            if rid in keep:
+                kept[rid] = text
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: c.count for k, c in counters.items()}
+    for rid, text in kept.items():
+        check_table(np, rid, text)
+    if stats.processed != len(records) or stats.failed:
+        fail(f"align processed {stats.processed}, failed {stats.failed}")
+    return kept, dict(
+        mode="strict" if strict else "fast", reads=len(records),
+        rows=n_rows, file_bytes=os.path.getsize(out_path), wall_s=wall,
+        reads_per_s=len(records) / wall,
+        peak_mem_bytes=torch.cuda.max_memory_allocated(), launches=launches,
+        shapes=shapes.report())
+
+
+def phase7_align(torch, np, models, dev, counters, tmp):
+    """7a strict align and 7b fast align of 32 reads of 10 kb (half
+    reverse) on CUDA, in turns (strict, fast, fast, strict; each record is
+    its mode's first run, with both runs' walls).  Returns (7b's texts of
+    the first 8 reads, 7a's record, 7b's record)."""
+    a_to_d = ("banded_fill", "banded_chase", "viterbi_fill",
+              "viterbi_backtrace")
+    records = align_records(models, 32, 10000, SEED + 700)
+    keep = {r.read_id for r in records[:8]}
+    runs, kept = {True: [], False: []}, {}
+    for strict in (True, False, False, True):
+        kept[strict], run = align_drive(
+            torch, np, models, dev, counters, records, strict,
+            os.path.join(tmp, f"strict{int(strict)}.align"), keep)
+        runs[strict].append(run)
+        missing = [k for k in a_to_d if run["launches"][k] == 0]
+        if missing:
+            fail(f"kernels never launched on align: {missing}")
+    p7a, p7b = runs[True][0], runs[False][0]
+    for rec, mode in ((p7a, True), (p7b, False)):
+        rec["wall_s_runs"] = [r["wall_s"] for r in runs[mode]]
+        rec["launches_runs"] = [r["launches"] for r in runs[mode]]
+    rounds = p7a["shapes"].get("strict_round_windows", [])
+    if not rounds or (p7a["launches"]["viterbi_fill"]
+                      != p7a["launches"]["viterbi_backtrace"]):
+        fail(f"strict align: {len(rounds)} rounds, C/D launches "
+             f"{p7a['launches']['viterbi_fill']}/"
+             f"{p7a['launches']['viterbi_backtrace']}")
+    p7a["rounds"] = len(rounds)
+    p7a["windows"] = sum(rounds)
+    p7a["rounds_s"] = sum(p7a["shapes"]["strict_round_s"])
+    p7a["cd_launches_per_round"] = p7a["launches"]["viterbi_fill"] / len(
+        rounds)
+    hist = {}
+    for W, T, N in p7a["shapes"]["viterbi_fill_WTN"]:
+        hist.setdefault(f"T{T},N{N}", []).append(W)
+    p7a["round_TN_hist"] = {k: dict(rounds=len(v), windows=sum(v))
+                            for k, v in hist.items()}
+    p7b["strict_fast_wall_ratio"] = (sum(p7a["wall_s_runs"])
+                                     / sum(p7b["wall_s_runs"]))
+    return kept[False], records[:8], p7a, p7b
+
+
+def phase7_cpu_agreement(torch, np, models, dev):
+    """7c: four 2 kb reads (two reverse) through ``align_reads``, strict and
+    fast, on the CPU and on CUDA: the same rows in the same order,
+    coordinate and k-mer columns equal, the two numeric columns within
+    1e-5, and the texts byte-equal (as they first came out on the card:
+    kernels C and D follow their plain twins bitwise, and the values
+    printed to six decimals did not move)."""
+    from dnascent_tpu_torch.config import DNA_R10
+    from dnascent_tpu_torch.pipeline.align import align_reads
+    records = align_records(models, 4, 2000, SEED + 750)
+    out = {}
+    for strict in (True, False):
+        texts = [list(align_reads(iter(records), models, DNA_R10, device=d,
+                                  strict=strict)) for d in ("cpu", dev)]
+        cpu, gpu = texts
+        if [r for r, _ in cpu] != [r for r, _ in gpu] or any(
+                t is None for _, t in cpu + gpu):
+            fail("align CPU/CUDA read sets differ or a read failed")
+        gap, rows = 0.0, 0
+        for (rid, a), (_, b) in zip(cpu, gpu):
+            la, lb = a.split("\n"), b.split("\n")
+            if len(la) != len(lb) or la[0] != lb[0]:
+                fail(f"{rid}: CPU/CUDA eventalign rows differ")
+            for x, y in zip(la[1:-1], lb[1:-1]):
+                x, y = x.split("\t"), y.split("\t")
+                if x[0] != y[0] or x[1] != y[1] or x[3] != y[3]:
+                    fail(f"{rid}: CPU/CUDA rows differ: {x} vs {y}")
+                gap = max(gap, abs(float(x[2]) - float(y[2])),
+                          abs(float(x[4]) - float(y[4])))
+            rows += len(la) - 2
+        if not gap <= 1e-5:
+            fail(f"align CPU/CUDA values differ by {gap}")
+        if [t for _, t in cpu] != [t for _, t in gpu]:
+            fail("align CPU/CUDA texts are not byte-equal")
+        out["strict" if strict else "fast"] = dict(
+            reads=len(cpu), rows=rows, max_abs_gap=gap, byte_equal=True)
+    return out
+
+
+def phase7_traincnn(torch, np, models, model, dev, counters, records,
+                    fast_texts):
+    """7d: trainCNN's tables of ``records`` on CUDA with ``model``: with the
+    two call columns removed each equals its read's fast-align text byte for
+    byte, and exactly the rows of centre-T k-mers carry calls, in [0, 1]."""
+    from dnascent_tpu_torch.config import DNA_R10
+    from dnascent_tpu_torch.pipeline.traincnn import generate_training_tables
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    tables = list(generate_training_tables(records, models, model, DNA_R10,
+                                           device=dev))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: c.count for k, c in counters.items()}
+    if len(tables) != len(records):
+        fail(f"trainCNN wrote {len(tables)} of {len(records)} reads")
+    n_calls, n_rows = 0, 0
+    for rec, text in zip(records, tables):
+        n_rows += check_table(np, rec.read_id, text, call_columns=True)
+        lines = text.split("\n")
+        stripped = [lines[0]]
+        for line in lines[1:-1]:
+            cols = line.split("\t")
+            centre_t = cols[3][4] == "T" and cols[3] != "N" * 9
+            if (len(cols) == 7) != centre_t:
+                fail(f"{rec.read_id}: call columns off the centre-T rows")
+            if len(cols) == 7:
+                p = np.array([float(cols[5]), float(cols[6])])
+                if not (np.isfinite(p).all() and (p >= 0).all()
+                        and (p <= 1).all()):
+                    fail(f"{rec.read_id}: call probabilities out of [0, 1]")
+                n_calls += 1
+            stripped.append("\t".join(cols[:5]))
+        if "\n".join(stripped) + "\n" != fast_texts[rec.read_id]:
+            fail(f"{rec.read_id}: trainCNN table without calls differs "
+                 "from the fast align table")
+    missing = [k for k in ("banded_fill", "banded_chase", "viterbi_fill",
+                           "viterbi_backtrace") if launches[k] == 0]
+    if missing:
+        fail(f"kernels never launched on trainCNN: {missing}")
+    return dict(reads=len(tables), rows=n_rows, call_rows=n_calls,
+                wall_s=wall, launches=launches)
+
+
+def em_inputs(np, models, rng, K, M):
+    """K k-mers x M events of seeded two-component mixtures: component 1
+    at the synthetic model's mean and stdv, component 2 offset by
+    -0.6..0.6 with spread 0.08..0.3, weights 0.1..0.9.  Returns (the
+    k-mers, em_prior_batch's arguments: data, mask, mu1, s1, mu1, 2 * s1)."""
+    idx = rng.choice(models.pore_model.shape[0], K, replace=False)
+    mu1 = models.pore_model[idx, 0].astype(np.float32)
+    s1 = models.pore_model[idx, 1].astype(np.float32)
+    z = rng.random((K, M), dtype=np.float32) < rng.uniform(0.1, 0.9, K)[:, None]
+    c2 = rng.standard_normal((K, M), dtype=np.float32) * rng.uniform(
+        0.08, 0.3, K).astype(np.float32)[:, None] + (
+        mu1 + rng.uniform(-0.6, 0.6, K).astype(np.float32))[:, None]
+    c1 = rng.standard_normal((K, M), dtype=np.float32) * s1[:, None] + mu1[:, None]
+    data = np.where(z, c2, c1).astype(np.float32)
+    return idx, (data, np.ones((K, M), bool), mu1, s1, mu1, 2 * s1)
+
+
+def phase7_traingmm(torch, np, models, dev, tmp):
+    """7e: the EM on CUDA over two chunks of 2048 k-mers x 10,000 events
+    (the ``-e`` cap), timed, and against the CPU on a 256-k-mer slice;
+    ``train_gmm`` over 512 k-mers, its table written and read back."""
+    from dnascent_tpu_torch.config import DNA_R10
+    from dnascent_tpu_torch.io.poremodel import import_traingmm_model
+    from dnascent_tpu_torch.pipeline import traingmm as tg
+    p = DNA_R10.traingmm
+    rng = np.random.default_rng(SEED + 800)
+    chunks = [em_inputs(np, models, rng, 2048, p.max_events_per_kmer)[1]
+              for _ in range(2)]
+    t = lambda a, d: torch.from_numpy(np.ascontiguousarray(a)).to(d)
+    em = lambda args: tg.em_prior_batch(*args, p.default_pi,
+                                        p.em_tolerance, p.em_max_iterations)
+    em([t(a[:8], dev) for a in chunks[0]])         # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, fits = [], []
+    t_all = time.perf_counter()
+    for chunk in chunks:
+        args = [t(a, dev) for a in chunk]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fits.append([f.cpu() for f in em(args)])
+        times.append(time.perf_counter() - t0)
+    total = time.perf_counter() - t_all
+    peak = torch.cuda.max_memory_allocated()
+    for f in fits:
+        if not all(bool(torch.isfinite(x).all()) for x in f):
+            fail("EM: non-finite fits")
+    t0 = time.perf_counter()
+    cpu = em([t(a[:256], "cpu") for a in chunks[0]])
+    cpu_s = time.perf_counter() - t0
+    gap = max(float((a - b[:256]).abs().max()) for a, b in zip(cpu, fits[0]))
+    if not gap <= 1e-5:
+        fail(f"EM CUDA/CPU fits differ by {gap}")
+
+    # end to end: host DBSCAN + device EM over 512 k-mers, table round trip
+    idx, (data, *_) = em_inputs(np, models, rng, 512, 3000)
+    pools = {int(i): row.astype(np.float64) for i, row in zip(idx, data)}
+    t0 = time.perf_counter()
+    gmm = tg.train_gmm(pools, models, DNA_R10, device=dev)
+    e2e_s = time.perf_counter() - t0
+    path = os.path.join(tmp, "fit.model")
+    tg.write_gmm_table(gmm, path)
+    table = import_traingmm_model(path, DNA_R10.kmer_len)
+    back = float(max(max(abs(table[f.kmer_index, 0] - f.mu2),
+                         abs(table[f.kmer_index, 1] - f.sigma2))
+                     for f in gmm))
+    if len(gmm) != len(pools) or not back <= 1e-5:
+        fail(f"trainGMM: {len(gmm)} of {len(pools)} k-mers fitted, table "
+             f"read back within {back}")
+    return dict(
+        em_full=dict(chunks=len(chunks), kmers_per_chunk=2048,
+                     events=p.max_events_per_kmer, iterations=
+                     p.em_max_iterations, chunk_s=times, wall_s=total,
+                     peak_mem_bytes=peak, pi2_mean=float(fits[0][1].mean())),
+        em_cuda_vs_cpu=dict(kmers=256, max_abs_gap=gap, tol=1e-5,
+                            cpu_s=cpu_s),
+        train_gmm=dict(kmers=len(gmm), wall_s=e2e_s, table_readback=back))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -862,6 +1173,15 @@ def main() -> int:
         p6["seebreaks"] = phase6_seebreaks(torch, np, dev, paths)
     print("phase 6 analysis flow: " + json.dumps(p6), flush=True)
 
+    with tempfile.TemporaryDirectory() as tmp:
+        p7 = dict(cuda_vs_cpu=phase7_cpu_agreement(torch, np, models, dev))
+        fast_texts, records, p7["strict"], p7["fast"] = phase7_align(
+            torch, np, models, dev, counters, tmp)
+        p7["traincnn"] = phase7_traincnn(torch, np, models, model, dev,
+                                         counters, records, fast_texts)
+        p7["traingmm"] = phase7_traingmm(torch, np, models, dev, tmp)
+    print("phase 7 align and training tables: " + json.dumps(p7), flush=True)
+
     # (source, TPU kernel, the path whose launch count the table shows)
     meta = {
         "banded_fill": ("dnascent_tpu_torch/csrc/banded_fill.cu",
@@ -878,7 +1198,7 @@ def main() -> int:
                         "dnascent_tpu/models/reference_cnn.py:171", p4),
     }
     paths = {"phase3": p3, "phase4": p4, "phase5": p5,
-             "phase6": p6["modbam"]}
+             "phase6": p6["modbam"], "phase7": p7["strict"]}
     kernels = []
     for name, (src, rep, path) in meta.items():
         row = rows[name]

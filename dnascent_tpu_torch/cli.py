@@ -1,17 +1,18 @@
 """Command-line interface of the port: ``index``, ``detect`` (``.detect`` or
-modbam ``.bam`` output), ``forkSense`` and ``seeBreaks``.
+modbam ``.bam`` output), ``align``, ``forkSense``, ``seeBreaks``,
+``trainCNN`` (the training tables) and ``trainGMM``.
 
 Run as ``python -m dnascent_tpu_torch <subprogram> ...`` or through the
 ``dnascent-tpu-torch`` entry point.  The flags are the JAX package's
-(``dnascent_tpu/cli.py``) plus ``--device`` (default ``cuda``) on ``detect``
-and on ``seeBreaks``, where only ``--fast`` uses it.  The CNN is the default
+(``dnascent_tpu/cli.py``) plus ``--device`` (default ``cuda``) on
+``detect``, ``align``, ``trainCNN``, ``trainGMM`` (its EM) and
+``seeBreaks``, where only ``--fast`` uses it.  The CNN is the default
 DetectCNN (``--cnn-weights``) or the reference's trained topology (``--model
 <SavedModel dir>``, or ``--cnn-weights`` with an npz that ``trainCNN
 --fit-arch reference`` wrote).  ``index``, ``forkSense`` and ``seeBreaks``
 without ``--fast`` run on the host, as in the JAX package.  What is not
-ported yet (the subprograms ``align``, ``trainCNN`` and ``trainGMM``,
-``--HMM``, ``--strict-windows``, multi-device and multi-process runs) is
-refused with an error rather than ignored.
+ported yet (``--HMM``, ``trainCNN --fit``, multi-device and multi-process
+runs) is refused with an error rather than ignored.
 """
 
 from __future__ import annotations
@@ -28,13 +29,14 @@ The subprograms are:
 
   index      generate an index file for fast5/pod5 files,
   detect     detect base analogues in Oxford Nanopore reads,
+  align      align nanopore signals to reference k-mers,
   forkSense  call replication origins, fork movement, and fork stalling,
-  seeBreaks  detect an elevated frequency of DNA breaks at forks.
+  seeBreaks  detect an elevated frequency of DNA breaks at forks,
+  trainCNN   build training data for neural network training,
+  trainGMM   estimate the mean and standard deviation of a base analogue's current.
 
-Not ported yet: align, trainCNN, trainGMM.
+Not ported yet: --HMM, trainCNN --fit, multi-device and multi-process runs.
 """
-
-UNPORTED_SUBPROGRAMS = ("align", "trainCNN", "trainGMM")
 
 
 def _refused(features: list[str]) -> bool:
@@ -77,18 +79,18 @@ def main_index(argv) -> int:
 
 
 # ---------------------------------------------------------------------------
-# detect
+# detect / align / trainCNN shared front end
 # ---------------------------------------------------------------------------
 
-def _detect_parser():
-    p = argparse.ArgumentParser(prog="dnascent-tpu-torch detect")
+def _detect_parser(prog: str, min_l_default: int):
+    p = argparse.ArgumentParser(prog=f"dnascent-tpu-torch {prog}")
     p.add_argument("-b", "--bam", required=True)
     p.add_argument("-r", "--reference", required=True)
     p.add_argument("-i", "--index", required=True)
     p.add_argument("-o", "--output", required=True)
     p.add_argument("-t", "--threads", type=int, default=1)
     p.add_argument("-q", "--quality", type=int, default=20)
-    p.add_argument("-l", "--length", type=int, default=1000)
+    p.add_argument("-l", "--length", type=int, default=min_l_default)
     p.add_argument("-m", "--maxReads", type=int, default=None)
     p.add_argument("--GPU", default=None, help="accepted for compatibility; "
                    "use --device")
@@ -114,8 +116,46 @@ def _detect_parser():
                    help="skip reads already present in the .detect output "
                    "file")
     p.add_argument("--strict-windows", action="store_true",
-                   help="not ported yet")
+                   help="reproduce the reference's sequential window "
+                   "coupling (strict eventalign)")
     return p
+
+
+def _unported(a) -> list[str]:
+    """The front end's flags that are not ported yet, as given."""
+    return (["--HMM"] if a.HMM else []) + _distributed_flags(a)
+
+
+def _open_source(a):
+    """(read source over the BAM, the list its missing read ids go to)."""
+    from .io.fasta import import_reference
+    from .io.index_io import parse_index
+    from .pipeline.source import BamSignalSource
+    missing: list[str] = []
+    src = BamSignalSource(a.bam, import_reference(a.reference),
+                          parse_index(a.index), min_mapq=a.quality,
+                          min_length=a.length, max_reads=a.maxReads,
+                          on_missing=missing.append)
+    return src, missing
+
+
+def _write_missing_log(out_path: str, suffix: str, missing) -> None:
+    with open(os.path.splitext(out_path)[0] + suffix, "w") as fh:
+        for rid in missing:
+            fh.write(f"ReadID {rid} missing from index. Skipping.\n")
+
+
+def _resolve_device(name: str):
+    """The run's device; on CUDA, cuBLAS/cuDNN in full f32 where the model
+    runs f32 (the head); the bf16 layers are unaffected."""
+    import torch
+
+    from . import device as devmod
+    dev = devmod.resolve(name)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return dev
 
 
 def _load_cnn(a, device):
@@ -158,43 +198,26 @@ def _load_cnn(a, device):
 
 
 def main_detect(argv) -> int:
-    a = _detect_parser().parse_args(argv)
+    a = _detect_parser("detect", 1000).parse_args(argv)
     ext = a.output.rsplit(".", 1)[-1]
     if ext not in ("detect", "bam"):
         print(f"Exiting with error.  Invalid output extension: {ext}",
               file=sys.stderr)
         return 1
-    if _refused([flag for flag, on in (("--HMM", a.HMM),
-                                       ("--strict-windows", a.strict_windows))
-                 if on] + _distributed_flags(a)):
+    if _refused(_unported(a)):
         return 1
     human_readable = ext == "detect"
 
-    import torch
-
-    from . import device as devmod
     from .config import DNA_R10
-    from .io.fasta import import_reference
-    from .io.index_io import parse_index
     from .io.poremodel import load_model_set
     from .pipeline.detect import DetectStats, detect_reads
-    from .pipeline.source import BamSignalSource
     from .utils.progress import ProgressBar
 
-    dev = devmod.resolve(a.device)
-    if dev.type == "cuda":
-        # cuBLAS/cuDNN in full f32 where the model runs f32 (the head); the
-        # bf16 layers are unaffected
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    dev = _resolve_device(a.device)
     model = _load_cnn(a, dev)
     cfg = DNA_R10
     models = load_model_set(cfg)
-    missing = []
-    src = BamSignalSource(a.bam, import_reference(a.reference),
-                          parse_index(a.index), min_mapq=a.quality,
-                          min_length=a.length, max_reads=a.maxReads,
-                          on_missing=missing.append)
+    src, missing = _open_source(a)
     total = src.count_records()
     done_ids = set()
     if a.resume and human_readable and os.path.exists(a.output):
@@ -223,17 +246,133 @@ def main_detect(argv) -> int:
     bar = ProgressBar(max(1, total - len(done_ids)))
     with writer as w:
         for _rid, d in detect_reads(src, models, model, cfg, device=dev,
-                                    stats=stats, collect_failures=True):
+                                    stats=stats, collect_failures=True,
+                                    strict_windows=a.strict_windows):
             if d is not None:
                 w.write(d)
             bar.display(stats.processed, stats.failed)
     bar.display(stats.processed, stats.failed)
     bar.finish()
-    log = os.path.splitext(a.output)[0] + ".detect.log"
-    with open(log, "w") as fh:
-        for rid in missing:
-            fh.write(f"ReadID {rid} missing from index. Skipping.\n")
+    _write_missing_log(a.output, ".detect.log", missing)
     print(f"\ndetect: {stats.processed} reads, {stats.failed} failed QC")
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# align / trainCNN / trainGMM
+# ---------------------------------------------------------------------------
+
+def main_align(argv) -> int:
+    p = _detect_parser("align", 100)
+    p.add_argument("--fast-windows", action="store_true",
+                   help="use the batched independent-window geometry "
+                   "instead of the reference's sequential window coupling "
+                   "(faster; rows differ where the couplings diverge)")
+    a = p.parse_args(argv)
+    if _refused(_unported(a)):
+        return 1
+    from .config import DNA_R10
+    from .io.poremodel import load_model_set
+    from .io.writers import AlignHRWriter
+    from .pipeline.align import align_reads
+    from .pipeline.detect import DetectStats
+    from .utils.progress import ProgressBar
+
+    dev = _resolve_device(a.device)
+    models = load_model_set(DNA_R10)
+    src, missing = _open_source(a)
+    bar = ProgressBar(max(1, src.count_records()))
+    stats = DetectStats()
+    # align's product is the reference's eventalign table, so the
+    # reference's window coupling (strict mode) is the default here
+    strict = a.strict_windows or not a.fast_windows
+    with AlignHRWriter(a.output) as w:
+        for _rid, text in align_reads(src, models, DNA_R10, device=dev,
+                                      strict=strict, stats=stats):
+            if text is not None:
+                w.write_text(text)
+            bar.display(stats.processed, stats.failed)
+    bar.finish()
+    _write_missing_log(a.output, ".align.log", missing)
+    print(f"\nalign: {stats.processed - stats.failed} reads, "
+          f"{stats.failed} failed QC")
+    return 0
+
+
+def main_traincnn(argv) -> int:
+    p = _detect_parser("trainCNN", 100)
+    p.add_argument("--fit", default=None, metavar="OUT_NPZ",
+                   help="not ported yet")
+    p.add_argument("--fit-label", choices=sorted({"Thym", "BrdU", "EdU"}),
+                   default=None, help="not ported yet (with --fit)")
+    p.add_argument("--fit-arch", choices=["tpu", "reference"], default="tpu",
+                   help="not ported yet (with --fit)")
+    p.add_argument("--fit-epochs", type=int, default=1,
+                   help="not ported yet (with --fit)")
+    p.add_argument("--fit-lr", type=float, default=3e-4,
+                   help="not ported yet (with --fit)")
+    a = p.parse_args(argv)
+    if _refused(_unported(a) + (["trainCNN --fit"] if a.fit else [])):
+        return 1
+    from .config import DNA_R10
+    from .io.poremodel import load_model_set
+    from .pipeline.traincnn import generate_training_tables
+
+    dev = _resolve_device(a.device)
+    model = _load_cnn(a, dev)
+    models = load_model_set(DNA_R10)
+    src, _missing = _open_source(a)
+    n = 0
+    with open(a.output, "w") as fh:
+        def flush(batch):
+            nonlocal n
+            for text in generate_training_tables(batch, models, model,
+                                                 DNA_R10, device=dev):
+                fh.write(text)
+                n += 1
+
+        batch = []
+        for rec in src:
+            batch.append(rec)
+            if len(batch) >= 32:
+                flush(batch)
+                batch = []
+        if batch:
+            flush(batch)
+    print(f"\ntrainCNN: {n} reads written")
+    return 0
+
+
+def main_traingmm(argv) -> int:
+    p = argparse.ArgumentParser(prog="dnascent-tpu-torch trainGMM")
+    p.add_argument("-d", "--trainingData", required=True)
+    p.add_argument("-o", "--output", required=True)
+    p.add_argument("-pi", dest="pi", type=float, default=0.5)
+    p.add_argument("-m", "--max-reads", type=int, default=100000)
+    p.add_argument("-e", "--max-events", type=int, default=10000)
+    p.add_argument("-t", "--threads", type=int, default=1)
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the EM (default cuda; cpu runs it "
+                   "on the host)")
+    a = p.parse_args(argv)
+    import dataclasses
+
+    from .config import DNA_R10
+    from .io.poremodel import load_model_set
+    from .pipeline.traingmm import (parse_align_events, train_gmm,
+                                    write_gmm_table)
+
+    dev = _resolve_device(a.device)
+    cfg = DNA_R10
+    if a.pi != cfg.traingmm.default_pi:
+        cfg = cfg.replace(traingmm=dataclasses.replace(cfg.traingmm,
+                                                       default_pi=a.pi))
+    models = load_model_set(cfg)
+    pools = parse_align_events(a.trainingData, cfg.kmer_len, a.max_events,
+                               a.max_reads)
+    fits = train_gmm(pools, models, cfg, device=dev)
+    write_gmm_table(fits, a.output, cfg.kmer_len)
+    print(f"Done. {len(fits)} k-mers fitted -> {a.output}")
     return 0
 
 
@@ -399,8 +538,11 @@ def main_seebreaks(argv) -> int:
 SUBCOMMANDS = {
     "index": main_index,
     "detect": main_detect,
+    "align": main_align,
     "forkSense": main_forksense,
     "seeBreaks": main_seebreaks,
+    "trainCNN": main_traincnn,
+    "trainGMM": main_traingmm,
 }
 
 
@@ -412,9 +554,6 @@ def main(argv=None) -> int:
     if argv[0] in ("-v", "--version"):
         print(f"dnascent_tpu_torch v{__version__}")
         return 0
-    if argv[0] in UNPORTED_SUBPROGRAMS:
-        _refused([f"subprogram {argv[0]}"])
-        return 1
     fn = SUBCOMMANDS.get(argv[0])
     if fn is None:
         print(GENERAL_HELP)

@@ -1,5 +1,6 @@
 """Pore-model tables: 4^k entries of (mean, stdv) per k-mer (a copy of the
-loaders and synthetic tables of ``dnascent_tpu/io/poremodel.py``).
+loaders, trainGMM's table reader and the synthetic tables of
+``dnascent_tpu/io/poremodel.py``).
 
 Three tables are used at runtime, mirroring the reference's startup loads
 (reference: src/config.h:52-54):
@@ -74,6 +75,25 @@ def import_pore_model_static_stdv(path: str, kmer_len: int, static_stdv: float =
 
 def import_pore_model_fit_stdv(path: str, kmer_len: int) -> np.ndarray:
     return _parse_model_tsv(path, kmer_len, None)
+
+
+def import_traingmm_model(path: str, kmer_len: int) -> np.ndarray:
+    """Parse the TSV emitted by trainGMM (columns: kmer, ONT_mean, ONT_stdv,
+    pi_1, mean_1, stdv_1, pi_2, mean_2, stdv_2, ...; trainGMM.cpp:468,521) into
+    a fit-stdv table using the second mixture component."""
+    table = np.zeros((4 ** kmer_len, 2), dtype=np.float32)
+    with open(path, "r") as fh:
+        for line in fh:
+            if not line.strip() or line[0] == "#":
+                continue
+            cols = line.rstrip("\n").split("\t")
+            kmer = cols[0]
+            if len(kmer) != kmer_len or any(c not in "ATGC" for c in kmer):
+                continue
+            idx = kmer2index(kmer, kmer_len)
+            table[idx, 0] = float(cols[7])  # mean_2
+            table[idx, 1] = float(cols[8])  # stdv_2
+    return table
 
 
 # ---------------------------------------------------------------------------

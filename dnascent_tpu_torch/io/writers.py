@@ -1,4 +1,5 @@
-"""Human-readable ``.detect`` writer (port of ``dnascent_tpu/io/writers.py``).
+"""Human-readable ``.detect`` and ``.align`` writers (port of
+``dnascent_tpu/io/writers.py``).
 
 ``#``-prefixed header (detect.cpp:196-232), per-read ``>readID contig
 refStart refEnd strand`` records and tab-separated ``coord  EdU  BrdU
@@ -55,6 +56,26 @@ class DetectHRWriter:
         if self._fh:
             self._fh.close()
             self._fh = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *a):
+        self.close()
+
+
+class AlignHRWriter:
+    """Human-readable .align writer: passthrough of per-read eventalign text
+    (alignment.cpp:701-736)."""
+
+    def __init__(self, path: str):
+        self._fh = open(path, "w")
+
+    def write_text(self, text: str) -> None:
+        self._fh.write(text)
+
+    def close(self) -> None:
+        self._fh.close()
 
     def __enter__(self):
         return self

@@ -2,7 +2,10 @@
 
 A copy of the entries of ``dnascent_tpu/native`` that the port calls: event
 detection, the chase's move decode, the eventalign window chain and window
-post-processing, and seeBreaks' libstdc++-exact bootstrap streams.  The library is built with ``g++`` at first use into
+post-processing, seeBreaks' libstdc++-exact bootstrap streams and the
+eventalign table's row formatter (which, unlike the original, refuses
+rather than cuts a row that overflows its buffer, and also writes trainCNN's
+call columns).  The library is built with ``g++`` at first use into
 ``build/torch_native/`` at the repository root (never into the package), and
 rebuilt when the source is newer than the library.  ``available()`` is False
 when it cannot be built or loaded; prep then decodes moves with the numpy
@@ -94,6 +97,11 @@ def _load():
             lib.seebreaks_difference.argtypes = [
                 ctypes.c_double, ctypes.c_double, ctypes.c_double,
                 ctypes.c_double, i64, u32, f64p,
+            ]
+            lib.format_eventalign_rows.restype = i64
+            lib.format_eventalign_rows.argtypes = [
+                i64p, i64p, u8p, f64p, f64p, u8p, f64p, f64p, i64,
+                ctypes.c_char_p, i64, i64, i64, ctypes.c_char_p, i64,
             ]
             _lib = lib
         except Exception as e:  # pragma: no cover
@@ -252,3 +260,41 @@ def process_read_windows(codes, steps_per, ns_per, g_ev, ev_start,
             indel_out[:P], sig_flat[: int(fl[0])],
             (scaled_stream[: int(nsamp[0])], seg_start[:P].copy(),
              nsig[:P].copy()))
+
+
+def format_eventalign_rows(coords, kstarts, is_ins, values, mmeans,
+                           seq: str, k: int, is_reverse: bool,
+                           calls=None) -> str:
+    """C-side formatting of eventalign table rows, one per raw sample.
+    Arrays hold one entry per output row; the k-mers are sliced (and
+    reverse-complemented) in C from the reference bytes.  ``calls`` is None
+    or (has_call u8, edu f64, brdu f64) per row: rows with has_call carry
+    trainCNN's two call columns.  Raises ValueError when the rows do not fit
+    the buffer, whose size is fixed from the row count (a value such as
+    1e300 prints 300 digits), instead of returning cut text."""
+    lib = get_lib()
+    n = int(coords.shape[0])
+    if n == 0:
+        return ""
+    if calls is None:
+        calls = (np.zeros(n, np.uint8), np.zeros(n), np.zeros(n))
+    has_call, edu, brdu = (np.ascontiguousarray(calls[0], np.uint8),
+                           np.ascontiguousarray(calls[1], np.float64),
+                           np.ascontiguousarray(calls[2], np.float64))
+    seq_b = seq.encode()
+    # a row's integer, two k-mers, two or four %.6f values and separators
+    cap = n * (64 + 2 * k) + 32 * int(has_call.sum())
+    out = ctypes.create_string_buffer(cap)
+    w = int(lib.format_eventalign_rows(
+        np.ascontiguousarray(coords, np.int64),
+        np.ascontiguousarray(kstarts, np.int64),
+        np.ascontiguousarray(is_ins, np.uint8),
+        np.ascontiguousarray(values, np.float64),
+        np.ascontiguousarray(mmeans, np.float64),
+        has_call, edu, brdu, n, seq_b, len(seq_b), int(k), int(is_reverse),
+        out, cap))
+    if w < 0:
+        raise ValueError(f"format_eventalign_rows failed ({w}): "
+                         + ("a row overflows the output buffer" if w == -1
+                            else "bad arguments"))
+    return out.raw[:w].decode()

@@ -3,8 +3,9 @@
 // A copy of the entries of dnascent_tpu/native/dnascent_native.cpp that the
 // port calls: the scrappie event-detection FSM (prep), the decode of the
 // backtrace chase's packed move stream (prep), the fast-mode eventalign
-// window chain and window post-processing (eventalign), and the
-// libstdc++-exact RNG streams of seeBreaks' parity mode.  These are cheap but
+// window chain and window post-processing (eventalign), the
+// libstdc++-exact RNG streams of seeBreaks' parity mode, and the eventalign
+// table's row formatter (align, trainCNN).  These are cheap but
 // sequential host steps; they run with the GIL released through ctypes.
 //
 // Plain C ABI, loaded through ctypes by native/__init__.py, which builds it
@@ -12,9 +13,11 @@
 // (MBoemo/DNAscent v4.1.1).
 
 #include <algorithm>
+#include <array>
 #include <cfloat>
 #include <cmath>
 #include <cstdint>
+#include <cstdio>
 #include <random>
 #include <vector>
 
@@ -426,6 +429,71 @@ void seebreaks_difference(double obs_mean, double obs_std, double sim_mean,
         double b = sim_d(gen);
         out_diff[i] = a - b;
     }
+}
+
+// ---------------------------------------------------------------------------
+// Eventalign table rows (alignment.cpp:701-733)
+// ---------------------------------------------------------------------------
+
+// One row per raw sample: refCoord, kmerRef, scaledSample, kmerStrand,
+// modelMean, and for rows with has_call[r] the EdU and BrdU calls of
+// trainCNN's table.  Insertion rows print N^k for the strand column and a
+// literal 0 model mean.  Row arrays arrive pre-exploded (one entry per
+// output row); this routine slices and reverse-complements the k-mers from
+// the reference bytes and formats.  Returns the bytes written, or -1 when a
+// row does not fit in what is left of ``out`` (nothing is cut silently),
+// -2 for k >= 63, -3 for a k-mer start outside the sequence, -4 for a
+// formatting error.
+long long format_eventalign_rows(
+    const long long* coords, const long long* kstarts,
+    const unsigned char* is_ins, const double* values, const double* mmeans,
+    const unsigned char* has_call, const double* edu, const double* brdu,
+    long long n_rows, const char* seq, long long seq_len, long long k,
+    long long is_reverse, char* out, long long out_cap) {
+    static const auto comp = [] {
+        std::array<char, 256> t{};
+        for (int i = 0; i < 256; ++i) t[i] = 'N';
+        t['A'] = 'T'; t['C'] = 'G'; t['G'] = 'C'; t['T'] = 'A';
+        t['a'] = 't'; t['c'] = 'g'; t['g'] = 'c'; t['t'] = 'a';
+        return t;
+    }();
+    long long w = 0;
+    char kmer_ref[64], kmer_strand[64];
+    if (k >= 63) return -2;
+    for (long long r = 0; r < n_rows; ++r) {
+        long long ks = kstarts[r];
+        if (ks < 0 || ks + k > seq_len) return -3;
+        for (long long j = 0; j < k; ++j) kmer_strand[j] = seq[ks + j];
+        kmer_strand[k] = 0;
+        if (is_reverse) {
+            for (long long j = 0; j < k; ++j)
+                kmer_ref[j] = comp[(unsigned char)kmer_strand[k - 1 - j]];
+        } else {
+            for (long long j = 0; j < k; ++j) kmer_ref[j] = kmer_strand[j];
+        }
+        kmer_ref[k] = 0;
+        long long left = out_cap - w;
+        int n;
+        if (is_ins[r]) {
+            for (long long j = 0; j < k; ++j) kmer_strand[j] = 'N';
+            n = snprintf(out + w, left, "%lld\t%s\t%.6f\t%s\t0\n", coords[r],
+                         kmer_ref, values[r], kmer_strand);
+        } else if (has_call[r]) {
+            n = snprintf(out + w, left, "%lld\t%s\t%.6f\t%s\t%.6f\t%.6f\t%.6f\n",
+                         coords[r], kmer_ref, values[r], kmer_strand,
+                         mmeans[r], edu[r], brdu[r]);
+        } else {
+            n = snprintf(out + w, left, "%lld\t%s\t%.6f\t%s\t%.6f\n",
+                         coords[r], kmer_ref, values[r], kmer_strand,
+                         mmeans[r]);
+        }
+        if (n < 0) return -4;
+        // snprintf returns the length it wanted: at or past what is left
+        // (the terminating NUL included) the row was cut
+        if (n >= left) return -1;
+        w += n;
+    }
+    return w;
 }
 
 }  // extern "C"

@@ -2,7 +2,8 @@
 ``dnascent_tpu/pipeline/detect.py``; reference detect.cpp:735-920).
 
     read source -> prep (events, scaling, banded fill + chase, Theil-Sen)
-                -> fast eventalign (windowed Viterbi fill + backtrace)
+                -> eventalign, fast or strict (windowed Viterbi fill +
+                   backtrace)
                 -> CNN forward (reads batched by padded position count)
                 -> per-read call tables -> writer
 
@@ -235,33 +236,13 @@ def collect_calls(rec: ReadRecord, pos: AlignedPositions,
         edu_prob_q=edu[qsel_t], brdu_prob_q=brdu[qsel_t])
 
 
-def detect_reads(records: Iterable[ReadRecord], models: PoreModelSet,
-                 model: DetectModel, cfg: SubstrateConfig = DNA_R10,
-                 device="cuda", batch_size: int = 32,
-                 stats: Optional[DetectStats] = None,
-                 collect_failures: bool = False, pipeline_depth: int = 4):
-    """Generator of (read_id, DetectedRead or None) over ``records``, run on
-    ``device`` in batches of ``batch_size`` reads, ``pipeline_depth``
-    batches in flight.  ``model`` must already live on ``device``."""
-    dev = devmod.resolve(device)
-    model.eval()
-    model_table = devmod.put_rep(models.pore_model.astype(np.float32), dev)
-    def process(batch):
-        prepped = prepare_reads(batch, models, cfg, device=dev)
-        results = run_eventalign(prepped, models, cfg, model_table=model_table)
-        probs = run_cnn_batched(model, results, prepped, dev)
-        out = []
-        for p in prepped:
-            rid = p.record.read_id
-            res = results.get(rid)
-            if res is None or res.positions is None or rid not in probs:
-                out.append((rid, None))
-            else:
-                out.append((rid, collect_calls(p.record, res.positions,
-                                               probs[rid])))
-        return out
-
-    # prefetch record batches (signal IO) on a thread while batches run
+def run_batches(records: Iterable[ReadRecord], process, batch_size: int,
+                pipeline_depth: int):
+    """Generator of ``process(batch)`` over ``records`` cut into batches of
+    ``batch_size``, ``pipeline_depth`` batches in flight on worker threads
+    (the reference's buffered OpenMP loop), drained in submission order
+    (its ordered writer, detect.cpp:852-906).  A thread prefetches the
+    batches (signal IO) meanwhile."""
     q: "queue.Queue" = queue.Queue(maxsize=pipeline_depth)
 
     def producer():
@@ -280,15 +261,6 @@ def detect_reads(records: Iterable[ReadRecord], models: PoreModelSet,
 
     t = threading.Thread(target=producer, daemon=True)
     t.start()
-
-    def drain(fut):
-        for rid, d in fut.result():
-            if stats is not None:
-                stats.processed += 1
-                stats.failed += d is None
-            if d is not None or collect_failures:
-                yield rid, d
-
     with ThreadPoolExecutor(max_workers=pipeline_depth) as ex:
         pending: deque = deque()
         while True:
@@ -300,7 +272,48 @@ def detect_reads(records: Iterable[ReadRecord], models: PoreModelSet,
                 raise batch
             pending.append(ex.submit(process, batch))
             while len(pending) >= pipeline_depth:
-                yield from drain(pending.popleft())
+                yield pending.popleft().result()
         while pending:
-            yield from drain(pending.popleft())
+            yield pending.popleft().result()
     t.join()
+
+
+def detect_reads(records: Iterable[ReadRecord], models: PoreModelSet,
+                 model: DetectModel, cfg: SubstrateConfig = DNA_R10,
+                 device="cuda", batch_size: int = 32,
+                 stats: Optional[DetectStats] = None,
+                 collect_failures: bool = False, pipeline_depth: int = 4,
+                 strict_windows: bool = False):
+    """Generator of (read_id, DetectedRead or None) over ``records``, run on
+    ``device`` in batches of ``batch_size`` reads, ``pipeline_depth``
+    batches in flight; ``strict_windows`` aligns with the reference's
+    window coupling (strict eventalign) instead of fast mode.  ``model``
+    must already live on ``device``."""
+    dev = devmod.resolve(device)
+    model.eval()
+    model_table = devmod.put_rep(models.pore_model.astype(np.float32), dev)
+
+    def process(batch):
+        prepped = prepare_reads(batch, models, cfg, device=dev)
+        results = run_eventalign(prepped, models, cfg, strict=strict_windows,
+                                 model_table=model_table)
+        probs = run_cnn_batched(model, results, prepped, dev)
+        out = []
+        for p in prepped:
+            rid = p.record.read_id
+            res = results.get(rid)
+            if res is None or res.positions is None or rid not in probs:
+                out.append((rid, None))
+            else:
+                out.append((rid, collect_calls(p.record, res.positions,
+                                               probs[rid])))
+        return out
+
+    for batch_out in run_batches(records, process, batch_size,
+                                 pipeline_depth):
+        for rid, d in batch_out:
+            if stats is not None:
+                stats.processed += 1
+                stats.failed += d is None
+            if d is not None or collect_failures:
+                yield rid, d

@@ -1,18 +1,29 @@
-"""Fast-mode windowed eventalign (port of the fast path of
-``dnascent_tpu/pipeline/eventalign.py::run_eventalign``).
+"""Windowed eventalign (port of ``dnascent_tpu/pipeline/eventalign.py``).
 
-Every 50 bp window of every read is built up front on the host (windows
-advance by their full k-mer span, so they are independent), the batch's
-observation stream is rebuilt on the device from prep's resident fill input,
-and windows run through the Viterbi fill (kernel C) and the Viterbi
-termination and backtrace (kernel D) in chunks grouped by observation and
-state bucket.  The native post-processing turns each read's paths into
-aligned positions.  Strict mode (the reference's sequential window
-coupling) and the eventalign text table are not ported.
+Fast mode (detect's default, ``align --fast-windows``): every 50 bp window
+of every read is built up front on the host (windows advance by their full
+k-mer span, so they are independent), the batch's observation stream is
+rebuilt on the device from prep's resident fill input, and windows run
+through the Viterbi fill (kernel C) and the Viterbi termination and
+backtrace (kernel D) in chunks grouped by observation and state bucket.
+
+Strict mode (``align``'s default, ``detect --strict-windows``) keeps the
+reference's coupling: window n+1 starts where window n's last match ended
+(alignment.cpp:738-740).  A speculative wavefront over reads runs it in
+rounds: each round every read sends a chain of windows built under the fast
+advance, one fill and one backtrace launch take them all, and a read commits
+its chain while the chain's predictions prove true.
+
+Either way the native post-processing turns each read's window paths into
+aligned positions, and with ``collect_text`` the eventalign table (one row
+per raw sample, the native formatter) is written beside them; with
+``calls_per_read`` (trainCNN's second pass) called coordinates carry the
+CNN's two call columns instead of becoming positions.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
@@ -36,6 +47,10 @@ HMM_KEY = ("external_D2D", "external_D2M", "external_I2M", "external_M2D",
 T_BUCKETS = (128, 192, 256, 384, 512, 1024)
 N_STATE_PAD = 72
 N_STATE_SMALL = 48
+# strict mode: a read's first chain is this long; it doubles on a fully
+# committed chain and halves, to STRICT_SPEC_FLOOR, on a misprediction
+STRICT_SPEC_START = 8
+STRICT_SPEC_FLOOR = 4
 
 
 @dataclass
@@ -59,6 +74,7 @@ class AlignedPositions:
 @dataclass
 class EventalignResult:
     positions: Optional[AlignedPositions]
+    text: Optional[str]      # the read's eventalign table (collect_text)
     qc_passed: bool
 
 
@@ -72,6 +88,32 @@ class _ReadState:
     defined: np.ndarray
     flat_obs_base: int = 0   # offset of the read's observations in the batch
     rank_off: int = 0        # offset of the read's ranks in the batch
+    # strict mode: the read's cursors, its speculation depth, its guarded
+    # pair stream (every window is a contiguous slice of it) and its
+    # breakpoint positions (built on first use)
+    reference_index: int = 0
+    read_head: int = 0
+    spec: int = STRICT_SPEC_START
+    strict_jg: Optional[np.ndarray] = None    # (n_pairs+1,) cum guard count
+    strict_g_ev: Optional[np.ndarray] = None  # guarded event ids
+    bp_mask: Optional[np.ndarray] = None
+
+
+@dataclass
+class _Window:
+    """One strict-mode window (alignment.cpp:555-650)."""
+
+    state: _ReadState
+    ref_index: int
+    window_length: int
+    event_ids: np.ndarray       # (T,) global event index per observation
+    first_inrange: int          # pair index of the first in-range event
+    indel_score: int
+    reference_coord: int
+    flat_local: int             # offset into the read's guarded stream
+    # the reference index the search that found it started from (below
+    # ref_index when unusable windows were skipped on the way)
+    search_start: int = -1
 
 
 @dataclass
@@ -143,6 +185,115 @@ def _build_window_set(st: _ReadState, cfg: SubstrateConfig,
                       pairs[guard_ok, 0])
 
 
+def _window_at(st: _ReadState, ri: int, cfg: SubstrateConfig, t_cap: int,
+               read_head: int) -> tuple[Optional[_Window], int]:
+    """Try to build a strict window at ``ri`` with the read cursor at
+    ``read_head`` (alignment.cpp:555-650).  Returns (window or None, the
+    advance to retry from when it is unusable)."""
+    p = st.p
+    k = cfg.kmer_len
+    total_wl = cfg.window_length_align
+    r2q = p.record.ref_to_query
+    pairs = p.event_alignment
+    bases_to_end = len(p.record.reference_seq) - ri
+    wl = min(bases_to_end, total_wl)
+
+    if bases_to_end > 1.5 * total_wl:
+        # break-point search (alignment.cpp:562-595); the snippet must be
+        # fully defined, else the window is skipped
+        snip_len = int(1.5 * wl)
+        if not st.defined[ri : ri + snip_len].all():
+            return None, wl
+        limit = int(1.5 * wl - k - 1)
+        if st.bp_mask is None:
+            # positions whose model-mean gaps to both neighbours exceed
+            # 0.75, once per read
+            m = st.mean_ref
+            d1 = np.abs(np.diff(m))           # d1[i] = |m[i] - m[i+1]|
+            bp = np.zeros(m.shape[0], bool)
+            if m.shape[0] > 2:
+                bp[1:-1] = (d1[1:] > 0.75) & (d1[:-1] > 0.75)
+            st.bp_mask = bp
+        hit = np.nonzero(st.bp_mask[ri + wl : ri + limit])[0]
+        if hit.shape[0]:
+            wl = wl + int(hit[0]) + k
+
+    if not st.defined[ri : ri + wl].all():
+        return None, wl
+    lo = r2q[ri]
+    hi = r2q[ri + wl - k + 1]
+    # pairs[:, 1] ascending: the in-range span, from the cursor on
+    j0 = max(int(np.searchsorted(pairs[:, 1], lo, side="left")), read_head)
+    j1 = int(np.searchsorted(pairs[:, 1], hi, side="left"))
+    if j1 <= j0:
+        return None, wl
+    # the window is the slice [jg[j0], jg[j1]) of the guarded stream: the
+    # event-mean guard depends only on the event, so it commutes with
+    # slicing pairs
+    J0 = int(st.strict_jg[j0])
+    J1 = int(st.strict_jg[j1])
+    if J1 - J0 < 2:
+        return None, wl
+    nT = min(J1 - J0, t_cap)   # safety clip for pathological windows
+    if p.record.is_reverse:
+        ref_coord = p.record.ref_end - ri - k // 2
+    else:
+        ref_coord = p.record.ref_start + ri + k // 2
+    return _Window(st, ri, wl, st.strict_g_ev[J0 : J0 + nT], j0,
+                   int(hi - lo) - (wl - k + 1), ref_coord, J0), 0
+
+
+def _advance_cursor(w: _Window, path_code: np.ndarray,
+                    cfg: SubstrateConfig) -> None:
+    """Strict mode: advance the read's cursors past one window's path
+    (alignment.cpp:738-740): the reference to the last match's position + 1,
+    the read head past the last match's event."""
+    st = w.state
+    path_kind, path_pos = vit.decode_path(path_code,
+                                          w.window_length - cfg.kmer_len + 1)
+    if path_kind.shape[0] == 0:
+        st.read_head = w.first_inrange + 1
+        st.reference_index = w.ref_index + 1
+        return
+    m_steps = np.nonzero(path_kind == vit.KIND_M)[0]
+    if m_steps.shape[0]:
+        last = m_steps[-1]
+        last_m_ev = int(np.cumsum(path_kind != vit.KIND_D)[last] - 1)
+        last_m_ref = int(path_pos[last])
+    else:
+        last_m_ev = 0
+        last_m_ref = 0
+    st.read_head = w.first_inrange + last_m_ev + 1
+    st.reference_index = w.ref_index + last_m_ref + 1
+
+
+def _window_set_from_windows(windows: list[_Window],
+                             cfg: SubstrateConfig) -> _WindowSet:
+    """A _WindowSet over a read's committed strict windows, in order, so the
+    fast mode's post-processing serves strict mode too.  Each window's
+    guarded event ids are concatenated into the set's stream (windows may
+    overlap in events; spans are self-contained)."""
+    k = cfg.kmer_len
+    n = len(windows)
+    ri = np.fromiter((w.ref_index for w in windows), np.int64, n)
+    ns = np.fromiter((w.window_length - k + 1 for w in windows), np.int64, n)
+    lens = np.fromiter((w.event_ids.shape[0] for w in windows), np.int64, n)
+    g1 = np.cumsum(lens)
+    g0 = g1 - lens
+    rc = np.fromiter((w.reference_coord for w in windows), np.int64, n)
+    indel = np.fromiter((w.indel_score for w in windows), np.int64, n)
+    g_ev = np.concatenate([w.event_ids for w in windows])
+    return _WindowSet(ri, ns, g0, g1, rc, indel, g_ev)
+
+
+def _ranges(counts: np.ndarray) -> np.ndarray:
+    """[0..c0-1, 0..c1-1, ...] for counts ci."""
+    total = int(counts.sum())
+    out = np.arange(total)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    return out - np.repeat(starts, counts)
+
+
 def _resident_obs(sets, dev) -> torch.Tensor:
     """The batch's flat f16 observation stream, gathered on the device from
     prep's resident fill inputs: a read's observations are its guarded
@@ -161,6 +312,29 @@ def _resident_obs(sets, dev) -> torch.Tensor:
         parts.append((vals * float(a) + float(b)).to(torch.float16))
         base += ws.g_ev.shape[0]
     return torch.cat(parts)
+
+
+def _strict_obs(states: list[_ReadState], cfg: SubstrateConfig,
+                dev) -> torch.Tensor:
+    """Strict mode's flat observation stream: each read's guarded event
+    means under its Theil-Sen scaling, in f64 arithmetic cast to f32 (not
+    the fast path's f16: the JAX package's strict windows see f32, and f16
+    would flip its paths at ties).  Sets each read's guarded pair stream and
+    its offset in the batch."""
+    dmin, dmax = cfg.detect.event_mean_min, cfg.detect.event_mean_max
+    parts = []
+    base = 0
+    for st in states:
+        p = st.p
+        pairs = p.event_alignment
+        means = p.event_mean[pairs[:, 0]]
+        guard = (means > dmin) & (means < dmax)
+        st.strict_jg = np.concatenate([[0], np.cumsum(guard)]).astype(np.int64)
+        st.strict_g_ev = pairs[guard, 0]
+        parts.append(((means[guard] - p.shift) / p.scale).astype(np.float32))
+        st.flat_obs_base = base
+        base += parts[-1].shape[0]
+    return devmod.put_rep(np.concatenate(parts), dev)
 
 
 def _batch_flat_ranks(states: list[_ReadState], dev) -> torch.Tensor:
@@ -232,6 +406,159 @@ def _read_paths(chunks, n_win: int, counts: np.ndarray):
             for c, w1 in zip(counts, ends)]
 
 
+def _fast_paths(states, cfg, dev, model_table, hmm_probs,
+                max_windows_per_batch):
+    """Fast mode: [(state, window set, codes, steps a window)] for every
+    read that has windows."""
+    t_cap = T_BUCKETS[-1]
+    sets: list[tuple[_ReadState, _WindowSet]] = []
+    for st in states:
+        ws = _build_window_set(st, cfg, t_cap)
+        if ws is not None:
+            sets.append((st, ws))
+    if not sets:
+        return []
+    obs_flat = _resident_obs(sets, dev)
+    ranks_flat = _batch_flat_ranks([st for st, _ in sets], dev)
+
+    lens = np.concatenate([ws.g1 - ws.g0 for _, ws in sets])
+    ostarts = np.concatenate([st.flat_obs_base + ws.g0 for st, ws in sets])
+    rstarts = np.concatenate([st.rank_off + ws.ri for st, ws in sets])
+    ns = np.concatenate([ws.ns for _, ws in sets])
+    epb = np.concatenate([np.full(ws.ri.shape[0], st.p.events_per_base)
+                          for st, ws in sets])
+
+    # group windows by (observation bucket, state bucket), then chunk
+    tb = np.searchsorted(np.asarray(T_BUCKETS), lens, side="left")
+    ns_hi = ns > N_STATE_SMALL
+    chunks = []
+    for bi in range(len(T_BUCKETS)):
+        for hi, n_pad in ((False, N_STATE_SMALL), (True, N_STATE_PAD)):
+            order = np.flatnonzero((tb == bi) & (ns_hi == hi))
+            for c0 in range(0, order.shape[0], max_windows_per_batch):
+                cid = order[c0 : c0 + max_windows_per_batch]
+                chunks.append((cid, *viterbi_windows(
+                    obs_flat, ranks_flat, model_table, lens[cid],
+                    ostarts[cid], rstarts[cid], ns[cid], epb[cid], hmm_probs,
+                    n_pad)))
+    counts = np.array([ws.ri.shape[0] for _, ws in sets], dtype=np.int64)
+    return [(st, ws, codes, steps) for (st, ws), (codes, steps)
+            in zip(sets, _read_paths(chunks, lens.shape[0], counts))]
+
+
+def _strict_chain(st: _ReadState, cfg: SubstrateConfig, t_cap: int,
+                  depth: int) -> list[_Window]:
+    """Up to ``depth`` windows from the read's true cursors on, each next
+    one built under the fast-mode advance (a full k-mer span; the last path
+    step is almost always a match, so lastM_ref + 1 == span) with the
+    previous window's first in-range pair as the read-head bound."""
+    k = cfg.kmer_len
+    n_starts = len(st.p.record.reference_seq) - k + 1
+    ri, rh = st.reference_index, st.read_head
+    chain: list[_Window] = []
+    while len(chain) < depth:
+        w = None
+        start = ri
+        while ri < n_starts:
+            w, skip = _window_at(st, ri, cfg, t_cap, rh)
+            if w is not None:
+                break
+            ri += skip
+        if w is None:
+            break
+        w.search_start = start
+        chain.append(w)
+        ri = w.ref_index + w.window_length - k + 1
+        rh = w.first_inrange
+    return chain
+
+
+def _strict_round(windows: list[_Window], obs_flat, ranks_flat, model_table,
+                  cfg, hmm_probs, max_windows_per_batch) -> list[np.ndarray]:
+    """One wavefront round: the windows through kernels C and D (one launch
+    each for up to ``max_windows_per_batch`` windows, at the round's largest
+    observation and state buckets), then one download.  Returns each
+    window's path codes."""
+    k = cfg.kmer_len
+    out = []
+    for c0 in range(0, len(windows), max_windows_per_batch):
+        chunk = windows[c0 : c0 + max_windows_per_batch]
+        n = len(chunk)
+        ns = np.fromiter((w.window_length - k + 1 for w in chunk), np.int64, n)
+        path, path_len = viterbi_windows(
+            obs_flat, ranks_flat, model_table,
+            np.fromiter((w.event_ids.shape[0] for w in chunk), np.int64, n),
+            np.fromiter((w.state.flat_obs_base + w.flat_local
+                         for w in chunk), np.int64, n),
+            np.fromiter((w.state.rank_off + w.ref_index for w in chunk),
+                        np.int64, n),
+            ns, np.fromiter((w.state.p.events_per_base for w in chunk),
+                            np.float64, n),
+            hmm_probs,
+            N_STATE_SMALL if int(ns.max()) <= N_STATE_SMALL else N_STATE_PAD)
+        plen = path_len.cpu().numpy()
+        rows = path[:, : int(plen.max())].cpu().numpy()
+        out += [rows[i, : plen[i]] for i in range(n)]
+    return out
+
+
+def _strict_paths(states, cfg, dev, model_table, hmm_probs,
+                  max_windows_per_batch, spec_depth):
+    """Strict mode's speculative wavefront.  Each round every active read
+    sends a chain of ``min(its depth, spec_depth)`` windows; a chain's
+    window is committed only while the search that found it started at the
+    read's true reference cursor and the true read head is at most its
+    first in-range pair.  Then it is the window the sequential loop builds:
+    j0 = max(searchsorted, read_head) gives the same span, and a window
+    skipped under the lower read-head bound is skipped under the true one.
+    A mispredicted tail is dropped and rebuilt from the true cursors next
+    round, so the result is the sequential loop's at any depth.  (The JAX
+    package compares the window's own start with the cursor instead: the
+    same wherever no window was skipped, but a window reached past a
+    skipped one, e.g. after an N run in the reference, never commits there,
+    and its wavefront does not end.)  Returns [(state, window set,
+    codes, steps a window)] for every read with a committed window."""
+    t_cap = T_BUCKETS[-1]
+    obs_flat = _strict_obs(states, cfg, dev)
+    ranks_flat = _batch_flat_ranks(states, dev)
+    committed = {id(st): [] for st in states}
+    active = states
+    while True:
+        chains = [(st, _strict_chain(st, cfg, t_cap, min(st.spec,
+                                                         spec_depth)))
+                  for st in active]
+        chains = [(st, c) for st, c in chains if c]
+        windows = [w for _, c in chains for w in c]
+        if not windows:
+            break
+        codes = iter(_strict_round(windows, obs_flat, ranks_flat,
+                                   model_table, cfg, hmm_probs,
+                                   max_windows_per_batch))
+        for st, chain in chains:
+            ok = True
+            for w, pc in zip(chain, codes):
+                if ok and (w.search_start != st.reference_index
+                           or st.read_head > w.first_inrange):
+                    ok = False
+                if ok:
+                    _advance_cursor(w, pc, cfg)
+                    committed[id(st)].append((w, pc))
+            st.spec = (min(st.spec * 2, spec_depth) if ok
+                       else max(STRICT_SPEC_FLOOR, st.spec // 2))
+        active = [st for st, _ in chains]
+    out = []
+    for st in states:
+        done = committed[id(st)]
+        if done:
+            pcs = [pc for _, pc in done]
+            out.append((st, _window_set_from_windows([w for w, _ in done],
+                                                     cfg),
+                        np.concatenate(pcs),
+                        np.fromiter((pc.shape[0] for pc in pcs), np.int64,
+                                    len(pcs))))
+    return out
+
+
 def _positions(st: _ReadState, ws: _WindowSet, codes: np.ndarray,
                steps_per: np.ndarray, cfg: SubstrateConfig
                ) -> Optional[AlignedPositions]:
@@ -253,59 +580,145 @@ def _positions(st: _ReadState, ws: _WindowSet, codes: np.ndarray,
         signal_counts=np.minimum(nsig, RAWDEPTH).astype(np.uint8))
 
 
+def _drop_called(pos: AlignedPositions,
+                 calls: dict) -> Optional[AlignedPositions]:
+    """The positions whose coordinate has no call (trainCNN's second pass
+    prints the calls there instead; JAX ``_process_window``), or None when
+    none is left."""
+    keep = ~np.isin(pos.coord, np.fromiter(calls, np.int64, len(calls)))
+    if not keep.any():
+        return None
+    flat_keep = np.repeat(keep, pos.signal_counts.astype(np.int64))
+    return AlignedPositions(**{
+        f.name: getattr(pos, f.name)[flat_keep if f.name == "signal_u8_flat"
+                                     else keep]
+        for f in dataclasses.fields(pos)})
+
+
+def _read_text(st: _ReadState, ws: _WindowSet, codes: np.ndarray,
+               steps: np.ndarray, cfg: SubstrateConfig,
+               calls: Optional[dict]) -> str:
+    """The read's eventalign rows (alignment.cpp:701-733), all windows at
+    once: per window, one row per raw sample of each match step's event
+    (M rows print the f32-cast scaled sample and the model mean, with the
+    two call columns where the coordinate has a call) and of each insertion
+    step's event before the window's last match (unrounded f64 sample, N^k,
+    mean 0); deletions print nothing.  Byte-equal to the JAX package's
+    per-window ``_append_window_text`` and, with calls, ``_emit_text``."""
+    p = st.p
+    k = cfg.kmer_len
+    n_win = steps.shape[0]
+    if codes.shape[0] == 0:
+        return ""
+    kinds = codes & 3
+    win = np.repeat(np.arange(n_win), steps)
+    first = np.cumsum(steps) - steps          # each window's first step
+    # positions: anchored at ns - 1 on each window's last step
+    dsum = np.concatenate(([0], np.cumsum((codes >> 2) & 1, dtype=np.int64)))
+    pos = (ws.ns[win] - 1) - (dsum[(first + steps)[win]]
+                              - dsum[1 : codes.shape[0] + 1])
+    # evIdx: a window's running count of non-deletion steps, minus one
+    nd = np.concatenate(([0], np.cumsum(kinds != vit.KIND_D,
+                                        dtype=np.int64)))
+    ev = nd[1:] - 1 - nd[first[win]]
+    is_m = kinds == vit.KIND_M
+    m_idx = np.flatnonzero(is_m)
+    last_m_ev = np.zeros(n_win, np.int64)
+    if m_idx.shape[0]:
+        mw = win[m_idx]
+        last = m_idx[np.r_[mw[1:] != mw[:-1], True]]
+        last_m_ev[win[last]] = ev[last]
+    # insertions after the last match are suppressed (alignment.cpp:728)
+    is_i = (kinds == vit.KIND_I) & (ev < last_m_ev[win])
+    sel = np.flatnonzero(is_m | is_i)
+    if sel.shape[0] == 0:
+        return ""
+    sw = win[sel]
+    e_g = ws.g_ev[ws.g0[sw] + ev[sel]]
+    rs, re_ = p.event_raw_start, p.event_raw_end
+    counts = (re_[e_g] - rs[e_g] + 1).astype(np.int64)
+    vals = (p.record.raw[np.repeat(rs[e_g], counts) + _ranges(counts)]
+            - p.shift) / p.scale
+    spos = pos[sel]
+    if p.record.is_reverse:
+        coords = ws.ref_coord[sw] - spos - 1
+    else:
+        coords = ws.ref_coord[sw] + spos
+    kstarts = ws.ri[sw] + spos
+    row_coord = np.repeat(coords, counts)
+    row_ins = np.repeat(is_i[sel], counts)
+    # M rows print the f32-cast scaled value, insertion rows the unrounded
+    # one: the two dtypes of the JAX package's per-row branches
+    row_val = np.where(row_ins, vals.astype(np.float64),
+                       vals.astype(np.float32).astype(np.float64))
+    row_calls = None
+    if calls:
+        keys = np.fromiter(calls, np.int64, len(calls))
+        order = np.argsort(keys)
+        keys = keys[order]
+        ce = np.array([calls[c][0] for c in keys], np.float64)
+        cb = np.array([calls[c][1] for c in keys], np.float64)
+        at = np.clip(np.searchsorted(keys, row_coord), 0, keys.shape[0] - 1)
+        has = ~row_ins & (keys[at] == row_coord)
+        row_calls = (has.astype(np.uint8), ce[at], cb[at])
+    return native.format_eventalign_rows(
+        row_coord, np.repeat(kstarts, counts), row_ins.astype(np.uint8),
+        row_val, np.repeat(st.mean_ref[kstarts], counts),
+        p.record.reference_seq, k, p.record.is_reverse, calls=row_calls)
+
+
 def run_eventalign(prepped: list[PreparedRead], models: PoreModelSet,
-                   cfg: SubstrateConfig = DNA_R10,
+                   cfg: SubstrateConfig = DNA_R10, collect_text: bool = False,
+                   calls_per_read: Optional[dict] = None,
+                   strict: bool = False, spec_depth: int = 64,
                    max_windows_per_batch: int = 8192,
                    model_table: Optional[torch.Tensor] = None,
                    ) -> dict[str, EventalignResult]:
-    """Fast-mode eventalign for a batch of prepared reads, on the device that
-    holds their resident fill inputs.  Returns {read_id: EventalignResult};
-    reads that failed earlier stages come back with qc_passed=False."""
+    """Eventalign for a batch of prepared reads, on the device that holds
+    their resident fill inputs; fast mode, or with ``strict`` the
+    reference's window coupling, speculating at most ``spec_depth`` windows
+    a read a round (any depth gives the same result).  ``collect_text``
+    writes each read's eventalign table into its result;
+    ``calls_per_read`` ({read_id: {coord: (EdU, BrdU)}}) adds the call
+    columns there and drops the called coordinates from the positions.
+    Returns {read_id: EventalignResult}; reads that failed earlier stages,
+    or kept no position, come back with qc_passed=False."""
     hmm_probs = tuple(getattr(cfg.hmm, k) for k in HMM_KEY)
     out: dict[str, EventalignResult] = {}
-    t_cap = T_BUCKETS[-1]
-    sets: list[tuple[_ReadState, _WindowSet]] = []
+    states: list[_ReadState] = []
     for p in prepped:
         st = None
         if p.passed and p.event_alignment.shape[0]:
             st = _build_state(p, models, cfg)
-        ws = _build_window_set(st, cfg, t_cap) if st is not None else None
-        if ws is None:
-            out[p.record.read_id] = EventalignResult(None, False)
-            continue
-        sets.append((st, ws))
-    if not sets:
+        if st is None:
+            out[p.record.read_id] = EventalignResult(None, None, False)
+        else:
+            states.append(st)
+    if not states:
         return out
-    dev = sets[0][0].p.events_dev.device
+    dev = states[0].p.events_dev.device
     if model_table is None:
         model_table = devmod.put_rep(models.pore_model.astype(np.float32), dev)
-    obs_flat = _resident_obs(sets, dev)
-    ranks_flat = _batch_flat_ranks([st for st, _ in sets], dev)
-
-    lens = np.concatenate([ws.g1 - ws.g0 for _, ws in sets])
-    ostarts = np.concatenate([st.flat_obs_base + ws.g0 for st, ws in sets])
-    rstarts = np.concatenate([st.rank_off + ws.ri for st, ws in sets])
-    ns = np.concatenate([ws.ns for _, ws in sets])
-    epb = np.concatenate([np.full(ws.ri.shape[0], st.p.events_per_base)
-                          for st, ws in sets])
-    n_win = lens.shape[0]
-
-    # group windows by (observation bucket, state bucket), then chunk
-    tb = np.searchsorted(np.asarray(T_BUCKETS), lens, side="left")
-    ns_hi = ns > N_STATE_SMALL
-    chunks = []
-    for bi in range(len(T_BUCKETS)):
-        for hi, n_pad in ((False, N_STATE_SMALL), (True, N_STATE_PAD)):
-            order = np.flatnonzero((tb == bi) & (ns_hi == hi))
-            for c0 in range(0, order.shape[0], max_windows_per_batch):
-                cid = order[c0 : c0 + max_windows_per_batch]
-                chunks.append((cid, *viterbi_windows(
-                    obs_flat, ranks_flat, model_table, lens[cid],
-                    ostarts[cid], rstarts[cid], ns[cid], epb[cid], hmm_probs,
-                    n_pad)))
-    counts = np.array([ws.ri.shape[0] for _, ws in sets], dtype=np.int64)
-    for (st, ws), (codes, steps) in zip(sets, _read_paths(chunks, n_win,
-                                                          counts)):
+    if strict:
+        paths = _strict_paths(states, cfg, dev, model_table, hmm_probs,
+                              max_windows_per_batch, spec_depth)
+    else:
+        paths = _fast_paths(states, cfg, dev, model_table, hmm_probs,
+                            max_windows_per_batch)
+    for st, ws, codes, steps in paths:
+        rec = st.p.record
+        calls = (None if calls_per_read is None
+                 else calls_per_read.get(rec.read_id))
         pos = _positions(st, ws, codes, steps, cfg)
-        out[st.p.record.read_id] = EventalignResult(pos, pos is not None)
+        if pos is not None and calls:
+            pos = _drop_called(pos, calls)
+        text = None
+        if pos is not None and collect_text:
+            text = (f">{rec.read_id} {rec.contig} {rec.ref_start} "
+                    f"{rec.ref_end} {rec.strand}\n"
+                    + _read_text(st, ws, codes, steps, cfg, calls))
+        out[rec.read_id] = EventalignResult(pos, text, pos is not None)
+    for st in states:
+        out.setdefault(st.p.record.read_id,
+                       EventalignResult(None, None, False))
     return out

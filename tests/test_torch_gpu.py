@@ -349,3 +349,78 @@ def test_seebreaks_fast_cuda_cli(cuda, tmp_path):
         assert vals.shape == (6 * DNA_R10.seebreaks.bootstrap_iterations,)
         assert np.isfinite(vals).all() and (vals >= 0).all() \
             and (vals <= 1).all()
+
+
+def _align_runs(cuda, models, n_reads, length, seed, strict):
+    """The same simulated reads (the first forward, the rest reverse)
+    through prep and eventalign with its text on the CPU and on CUDA."""
+    from dnascent_tpu_torch.pipeline import eventalign, prep
+    recs = (list(SimulatedSource(models, DNA_R10, n_reads=1, length=length,
+                                 seed=seed))
+            + list(SimulatedSource(models, DNA_R10, n_reads=n_reads - 1,
+                                   length=length, seed=seed + 1,
+                                   reverse=True)))
+    runs = []
+    for dev in ("cpu", cuda):
+        pp = prep.prepare_reads(recs, models, DNA_R10, device=dev)
+        runs.append(eventalign.run_eventalign(pp, models, DNA_R10,
+                                              collect_text=True,
+                                              strict=strict))
+    return runs
+
+
+def test_strict_eventalign_cuda_matches_cpu(cuda, models):
+    """Strict eventalign on CUDA (kernels A-D, C and D once a wavefront
+    round) against the CPU on two simulated reads, one reverse: every
+    position field and the text equal, and C and D launched alike."""
+    fill0 = viterbi_cuda.FILL_LAUNCHES.count
+    bt0 = viterbi_cuda.BACKTRACE_LAUNCHES.count
+    cpu, gpu = _align_runs(cuda, models, 2, 3000, 31, strict=True)
+    n_fill = viterbi_cuda.FILL_LAUNCHES.count - fill0
+    assert n_fill > 1 and viterbi_cuda.BACKTRACE_LAUNCHES.count - bt0 == n_fill
+    assert cpu.keys() == gpu.keys() and len(cpu) == 2
+    for rid in cpu:
+        a, b = cpu[rid], gpu[rid]
+        assert a.qc_passed and b.qc_passed
+        for f in dataclasses.fields(a.positions):
+            np.testing.assert_array_equal(getattr(a.positions, f.name),
+                                          getattr(b.positions, f.name))
+        assert a.text == b.text
+
+
+def test_align_text_cuda_matches_cpu(cuda, models):
+    """``align_reads`` on CUDA and on the CPU, strict and fast: the native
+    formatter's tables from the card's paths equal the CPU's byte for
+    byte."""
+    from dnascent_tpu_torch.pipeline.align import align_reads
+    recs = list(SimulatedSource(models, DNA_R10, n_reads=3, length=1500,
+                                seed=33, reverse=True))
+    for strict in (True, False):
+        texts = [list(align_reads(iter(recs), models, DNA_R10, device=d,
+                                  strict=strict)) for d in ("cpu", cuda)]
+        assert texts[0] == texts[1]
+        assert all(t is not None and t.count("\n") > 1000
+                   for _, t in texts[1])
+
+
+def test_em_prior_batch_cuda_matches_cpu(cuda):
+    """trainGMM's EM on CUDA against the CPU on 256 seeded two-component
+    pools of 200 to 4000 events: pi, mu and sigma within 1e-5 (f64 on both,
+    so the freeze iteration does not depend on the sum order)."""
+    from dnascent_tpu_torch.pipeline.traingmm import em_prior_batch
+    rng = np.random.default_rng(35)
+    K, M = 256, 4000
+    n = rng.integers(200, M + 1, K)
+    mu1 = rng.normal(0, 1, K).astype(np.float32)
+    s1 = np.full(K, 0.14, np.float32)
+    z = rng.random((K, M)) < rng.uniform(0.1, 0.9, K)[:, None]
+    data = np.where(z, rng.normal(mu1[:, None] + rng.uniform(-0.6, 0.6, K)
+                                  [:, None], 0.2, (K, M)),
+                    rng.normal(mu1[:, None], 0.14, (K, M))).astype(np.float32)
+    mask = np.arange(M)[None, :] < n[:, None]
+    data[~mask] = 0.0
+    args = [torch.from_numpy(a) for a in (data, mask, mu1, s1, mu1, 2 * s1)]
+    cpu = em_prior_batch(*args, 0.5, 0.01, 100)
+    gpu = em_prior_batch(*(a.to(cuda) for a in args), 0.5, 0.01, 100)
+    for a, b in zip(cpu, gpu):
+        assert float((a - b.cpu()).abs().max()) <= 1e-5

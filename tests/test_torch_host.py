@@ -468,3 +468,95 @@ def test_fork_reads_equal():
             assert getattr(a, name) == getattr(b, name)
         for name in ("coords", "edu", "brdu"):
             np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
+
+
+def _eventalign_rows(rng, n=3000, seq_len=600):
+    """Seeded formatter inputs: a fifth of the rows insertions, coordinates
+    and values of every sign, f32-cast and unrounded values."""
+    seq = "".join(rng.choice(list("ACGT"), seq_len))
+    vals = rng.normal(0, 2, n)
+    vals[::3] = vals[::3].astype(np.float32)
+    return seq, (rng.integers(-5, 10 ** 9, n), rng.integers(0, seq_len - 9, n),
+                 (rng.random(n) < 0.2).astype(np.uint8), vals,
+                 rng.normal(0, 1.5, n))
+
+
+@pytest.mark.parametrize("is_reverse", [False, True])
+def test_native_format_eventalign_rows_equal(is_reverse):
+    """The port's copy of the eventalign row formatter writes the bytes of
+    the JAX package's native original on normal rows (forward k-mers, and
+    reverse-complemented ones)."""
+    from dnascent_tpu import native as jn
+    from dnascent_tpu_torch import native as tn
+    seq, rows = _eventalign_rows(np.random.default_rng(17 + is_reverse))
+    want = jn.format_eventalign_rows(*rows, seq, 9, is_reverse)
+    assert want.count("\n") == rows[0].shape[0]
+    assert tn.format_eventalign_rows(*rows, seq, 9, is_reverse) == want
+
+
+@pytest.mark.parametrize("n_rows", [1, 3])
+def test_native_format_eventalign_rows_refuses_overflow(n_rows):
+    """A value such as 1e300 prints 300 digits, more than the buffer sized
+    from the row count holds: the port's formatter raises where the
+    original returns the text cut short."""
+    from dnascent_tpu import native as jn
+    from dnascent_tpu_torch import native as tn
+    seq, rows = _eventalign_rows(np.random.default_rng(19), n=n_rows)
+    rows[3][-1] = 1e300
+    cut = jn.format_eventalign_rows(*rows, seq, 9, False)
+    assert not cut.endswith("\n")       # the original's silent truncation
+    with pytest.raises(ValueError, match="overflow"):
+        tn.format_eventalign_rows(*rows, seq, 9, False)
+
+
+def test_import_traingmm_model_equal(tmp_path):
+    """trainGMM's table reader: the JAX package's writer's table (with a
+    header row and a k-mer carrying N, both skipped) read by both."""
+    from dnascent_tpu.io.poremodel import import_traingmm_model as j
+    from dnascent_tpu.pipeline.traingmm import GMMFit, write_gmm_table
+    from dnascent_tpu_torch.io.poremodel import import_traingmm_model as t
+    rng = np.random.default_rng(21)
+    fits = [GMMFit(int(i), *rng.normal(0, 1, 8), 900, 850)
+            for i in rng.choice(4 ** 9, 50, replace=False)]
+    path = str(tmp_path / "fit.model")
+    write_gmm_table(fits, path)
+    with open(path, "a") as fh:
+        fh.write("ACGTNACGT\t1\t1\t1\t1\t1\t1\t1\t1\t1\t1\n")
+    a, b = j(path, 9), t(path, 9)
+    assert np.count_nonzero(a[:, 1]) == 50
+    np.testing.assert_array_equal(b, a)
+
+
+def test_parse_align_events_and_dbscan_equal(tmp_path):
+    """The trainGMM host steps: pooling an align table's scaled samples by
+    k-mer (insertion rows skipped, ``-e`` and ``-m`` caps) and the 1-D
+    DBSCAN filter, against the JAX package's."""
+    from dnascent_tpu.pipeline import traingmm as j
+    from dnascent_tpu_torch.pipeline import traingmm as t
+    from dnascent_tpu_torch.utils.seqtools import index2kmer
+    rng = np.random.default_rng(23)
+    kmers = [index2kmer(int(i), 9) for i in rng.choice(4 ** 9, 6)]
+    path = str(tmp_path / "t.align")
+    with open(path, "w") as fh:
+        for read in range(4):
+            fh.write(f">r{read} chrS 0 10 fwd\n")
+            for _ in range(400):
+                km = kmers[rng.integers(0, 6)]
+                ins = rng.random() < 0.1
+                fh.write(f"7\t{km}\t{rng.normal(0, 1):.6f}\t"
+                         f"{'N' * 9 if ins else km}\t0.5\n")
+    for max_events, max_reads in ((10000, None), (50, 2)):
+        a = j.parse_align_events(path, 9, max_events, max_reads)
+        b = t.parse_align_events(path, 9, max_events, max_reads)
+        assert a.keys() == b.keys() and len(a) == 6
+        for k in a:
+            np.testing.assert_array_equal(b[k], a[k])
+    for seed in range(3):
+        r = np.random.default_rng(seed)
+        ev = np.concatenate([r.normal(0, 0.2, 500), r.normal(3, 0.5, 30),
+                             r.uniform(-9, 9, 12)])
+        for eps, min_points in ((0.5, 12), (0.1, 3), (0.05, 40)):
+            keep = j.dbscan_filter_1d(ev, eps, min_points)
+            assert 0 < keep.sum() < ev.shape[0] or min_points == 40
+            np.testing.assert_array_equal(
+                t.dbscan_filter_1d(ev, eps, min_points), keep)

@@ -34,8 +34,9 @@ sys.meta_path.insert(0, _Block())
 import numpy as np, torch
 import dnascent_tpu_torch
 import dnascent_tpu_torch.cli, dnascent_tpu_torch.__main__
-from dnascent_tpu_torch.pipeline import (detect, eventalign, forksense,
-                                         prep, seebreaks)
+from dnascent_tpu_torch.pipeline import (align, detect, eventalign,
+                                         forksense, prep, seebreaks,
+                                         traincnn, traingmm)
 from dnascent_tpu_torch.io import index_io, modbam, writers
 from dnascent_tpu_torch.testing import forks
 from dnascent_tpu_torch.tools import bedgraph
@@ -118,13 +119,16 @@ def test_cli_refuses_unported_features(tmp_path, capsys):
                   "--order", "EdU,BrdU"]
     see_breaks = ["seeBreaks", "-r", "r.bed", "-a", "a.bed", "-d", "x.detect",
                   "-o", str(tmp_path / "o.seeBreaks")]
+    align = ["align", *base[1:], "-o", str(tmp_path / "o.align")]
     for argv in (base + ["-o", str(tmp_path / "o.detect"), "--HMM"],
-                 base + ["-o", str(tmp_path / "o.detect"), "--strict-windows"],
+                 ["trainCNN", *base[1:], "-o", str(tmp_path / "o.trainCNN"),
+                  "--fit", str(tmp_path / "fit.npz")],
                  base + ["-o", str(tmp_path / "o.bam"), "--nprocs", "2"],
                  fork_sense + ["--nprocs", "2"],
                  see_breaks + ["--nprocs", "2"],
                  see_breaks + ["--fast", "--coordinator", "h:1"],
-                 ["align"], ["trainCNN"], ["trainGMM"]):
+                 align + ["--HMM"], align + ["--nprocs", "2"],
+                 align + ["--devices", "2"]):
         assert cli.main(argv) == 1
         assert "Not ported" in capsys.readouterr().err
     assert not list(tmp_path.iterdir())
