@@ -67,7 +67,24 @@ Phases, one line each:
      chunks of 2048 k-mers x 10,000 events of seeded two-component
      mixtures, its time and peak memory, and against the CPU on a 256-k-mer
      slice within 1e-5; ``train_gmm`` end to end over 512 k-mers, its table
-     written and read back with ``import_traingmm_model``.
+     written and read back with ``import_traingmm_model``;
+  8. ``detect --HMM`` and CNN fitting, on simulated in-memory reads: (a) 32
+     reads of 10 kb, half of them reverse, as one batch through
+     ``hmm_detect_reads`` on CUDA (kernels A and B in prep; C, D and F must
+     not launch): windows, T, the forward's device time a batch (CUDA
+     events, both passes) against its bound, its device operations a pass
+     (``torch.profiler``), reads/s and peak memory; every line must parse
+     and every LLR be finite; (b) four 2 kb reads on CUDA and on the CPU:
+     equal lines, LLRs within 1e-4; (c) ``batches_from_labelled_reads`` of
+     8 of (a)'s reads (label BrdU, seq_len 1024, batch 8) on CUDA, then 10
+     steps of each architecture at full width on CUDA (the DetectCNN at 128
+     x 8 blocks, the reference topology from its seeded weights): ms a step
+     and peak memory; losses finite, the reference topology's BatchNorm
+     moving statistics unchanged, kernel F not launched (float windows take
+     the plain scan), and the npz written and read back into equal weights;
+     (d) one step of each architecture on CUDA and on the CPU from equal
+     weights on 2 x 1024 positions of (c)'s first batch: losses within
+     1e-2.
 Each path's launch counts are set to 0 just before it and read just after.
 The shapes of phases 3-5 (each path's C launches and F's live-step
 histogram, recorded by observers around the wrappers) show whether phase
@@ -113,6 +130,12 @@ SEED = 0
 PROB_ATOL_CPU = 0.02
 REF_PROB_ATOL_CPU = 0.05
 GRU_ATOL = 2e-5
+# --HMM: the forward's CUDA and CPU log-likelihoods differ by f32 rounding
+# of their log-sum-exp chains (the CPU test against the JAX package holds
+# 1e-4 on the printed LLR); a training step's loss, CUDA against CPU, by
+# the bf16 layers' rounding in cuDNN and oneDNN
+LLR_ATOL_CPU = 1e-4
+LOSS_ATOL_CPU = 1e-2
 # published peaks of one H100 SXM (NVIDIA's data sheet, at 700 W): memory
 # rate, float32 rate outside the tensor cores (A-E are f32 or integer work)
 # and the dense TF32 tensor-core rate (F's products); a fused multiply-add
@@ -129,6 +152,11 @@ PEAK_TF32_OPS_PER_S = 495e12
 # and gate math run on the f32 pipes and are not counted)
 OPS_PER_CELL = {"banded_fill": 10, "banded_fill_general": 12,
                 "viterbi_fill": 26, "gru_encoder": 3 * 2 * 2304}
+# the --HMM forward (ops/hmm.py), a (window, state) cell a step, counting a
+# log-add-exp as 6 (max, subtract, abs, exp, log1p, add) and not the
+# selects: emission 5, insertion 8, match 21 + first state 12 + 1, the
+# deletion chain's prefix and update 16
+OPS_PER_HMM_CELL = 64
 # the kernels no single PyTorch call computes (library_ms null), and why;
 # F's library_ms is measured in phase 1
 LIBRARY_NOTES = {
@@ -1096,6 +1124,279 @@ def phase7_traingmm(torch, np, models, dev, tmp):
         train_gmm=dict(kmers=len(gmm), wall_s=e2e_s, table_readback=back))
 
 
+class ForwardObserver:
+    """Records, while the ``--HMM`` path runs, each forward pass's (W, T),
+    its steps (the longest window's observations) and its device time
+    (CUDA events), and keeps the last pass's arguments."""
+
+    def __init__(self, torch):
+        from dnascent_tpu_torch.pipeline import hmm_detect
+        self.mod, self.orig = hmm_detect, hmm_detect.forward_batch
+        self.passes, self.args = [], None
+
+        def observed(obs, n_obs, *rest):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self.orig(obs, n_obs, *rest)
+            end.record()
+            self.passes.append((list(obs.shape), int(n_obs.max()), start,
+                                end))
+            self.args = (obs, n_obs, *rest)
+            return out
+
+        self.wrapped = observed
+
+    def __enter__(self):
+        self.mod.forward_batch = self.wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.forward_batch = self.orig
+
+    def report(self, torch) -> dict:
+        torch.cuda.synchronize()
+        return dict(WT=[p[0] for p in self.passes],
+                    steps=[p[1] for p in self.passes],
+                    pass_ms=[s.elapsed_time(e) for *_, s, e in self.passes])
+
+
+def device_ops(torch, fn):
+    """(device operations, their summed device ms) of one call of ``fn``,
+    from ``torch.profiler``; (None, None) when it traces no device work."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    except Exception as e:  # a profiler that cannot trace the card
+        print(f"chip_smoke: torch.profiler: {e!r}", file=sys.stderr)
+        return None, None
+    if not evs:
+        return None, None
+    us = sum(getattr(e, "device_time", None) or getattr(e, "cuda_time", 0)
+             for e in evs)
+    return len(evs), us / 1e3
+
+
+def check_hmm_text(np, rid, text):
+    """A read's ``--HMM`` block: its header, then rows of coordinate,
+    finite LLR and two 9-mers.  Returns (rows, LLRs)."""
+    lines = text.split("\n")
+    head = lines[0].split()
+    if not (head[0] == f">{rid}" and len(head) == 5 and lines[-1] == ""
+            and head[4] in ("fwd", "rev")):
+        fail(f"{rid}: malformed --HMM header or tail")
+    llr = []
+    for line in lines[1:-1]:
+        cols = line.split("\t")
+        if not (len(cols) == 4 and cols[0].isdigit() and len(cols[2]) == 9
+                and len(cols[3]) == 9 and set(cols[2] + cols[3]) <= set(
+                    "ACGT")):
+            fail(f"{rid}: malformed --HMM row {line!r}")
+        llr.append(float(cols[1]))
+    llr = np.array(llr)
+    if not np.isfinite(llr).all():
+        fail(f"{rid}: non-finite LLR")
+    return len(llr), llr
+
+
+def phase8_hmm(torch, np, models, dev, counters):
+    """8a: 32 reads of 10 kb (half reverse) as one batch through
+    ``hmm_detect_reads`` on CUDA; the forward's passes timed and its bound
+    counted from this run's windows."""
+    from dnascent_tpu_torch.config import DNA_R10
+    from dnascent_tpu_torch.pipeline.detect import DetectStats
+    from dnascent_tpu_torch.pipeline.hmm_detect import hmm_detect_reads
+    from dnascent_tpu_torch.ops.hmm import forward_batch
+
+    records = align_records(models, 32, 10000, SEED + 850)
+    stats = DetectStats()
+    n_rows, texts = 0, {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    with ForwardObserver(torch) as obs:
+        for rid, text in hmm_detect_reads(iter(records), models, DNA_R10,
+                                          device=dev, stats=stats,
+                                          batch_size=32):
+            if text is None:
+                fail(f"{rid}: failed QC in --HMM detect")
+            texts[rid] = text
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: c.count for k, c in counters.items()}
+    llr_all = []
+    for rid, text in texts.items():
+        rows, llr = check_hmm_text(np, rid, text)
+        n_rows += rows
+        llr_all.append(llr)
+    llr_all = np.concatenate(llr_all)
+    if stats.processed != len(records) or n_rows == 0:
+        fail(f"--HMM processed {stats.processed} reads, {n_rows} rows")
+    missing = [k for k in ("banded_fill", "banded_chase") if launches[k] == 0]
+    wrong = [k for k in ("viterbi_fill", "viterbi_backtrace", "gru_encoder",
+                         "banded_fill_general") if launches[k] != 0]
+    if missing or wrong:
+        fail(f"--HMM kernels: never launched {missing}, launched {wrong}")
+    rep = obs.report(torch)
+    if len(rep["WT"]) != 2:
+        fail(f"--HMM ran {len(rep['WT'])} forward passes, expected 2")
+    # the forward's bound: the live windows' observations once, each
+    # pass's means and stdvs, the counts, events per base and outputs; the
+    # operations of the live (window, state) cells of each step
+    fwd_args = obs.args
+    n_obs = fwd_args[1]
+    N = fwd_args[2].shape[1]
+    live_obs = float(n_obs.double().sum())
+    nbytes = 4 * (live_obs + 2 * 2 * n_rows * N + 2 * n_rows + 2 * n_rows)
+    ops = live_obs * N * OPS_PER_HMM_CELL * 2
+    fwd = dict(ms_per_batch=sum(rep["pass_ms"]), pass_ms=rep["pass_ms"],
+               WT=rep["WT"][0], steps=rep["steps"][0], windows=n_rows,
+               states=N)
+    fwd.update(bound(nbytes, ops))
+    fwd["share_of_bound"] = fwd["bound_ms"] / fwd["ms_per_batch"]
+    n_ops, ops_ms = device_ops(torch, lambda: forward_batch(*fwd_args))
+    fwd["device_ops_per_pass"] = n_ops
+    fwd["device_ops_ms_per_pass"] = ops_ms
+    return records, dict(
+        reads=len(records), rows=n_rows, wall_s=wall,
+        reads_per_s=len(records) / wall, peak_mem_bytes=peak,
+        launches=launches, llr_min=float(llr_all.min()),
+        llr_max=float(llr_all.max()), llr_mean=float(llr_all.mean()),
+        forward=fwd)
+
+
+def phase8_hmm_cpu_agreement(torch, np, models, dev):
+    """8b: four 2 kb reads (two reverse) through ``hmm_detect_reads`` on the
+    CPU and on CUDA: equal lines but the LLR, within LLR_ATOL_CPU."""
+    from dnascent_tpu_torch.config import DNA_R10
+    from dnascent_tpu_torch.pipeline.hmm_detect import hmm_detect_reads
+    records = align_records(models, 4, 2000, SEED + 870)
+    cpu, gpu = (list(hmm_detect_reads(iter(records), models, DNA_R10,
+                                      device=d)) for d in ("cpu", dev))
+    if [r for r, _ in cpu] != [r for r, _ in gpu] or any(
+            t is None for _, t in cpu + gpu):
+        fail("--HMM CPU/CUDA read sets differ or a read failed")
+    gap, rows = 0.0, 0
+    for (rid, a), (_, b) in zip(cpu, gpu):
+        la, lb = a.split("\n"), b.split("\n")
+        if len(la) != len(lb) or la[0] != lb[0]:
+            fail(f"{rid}: --HMM CPU/CUDA lines differ")
+        for x, y in zip(la[1:-1], lb[1:-1]):
+            x, y = x.split("\t"), y.split("\t")
+            if x[0] != y[0] or x[2:] != y[2:]:
+                fail(f"{rid}: --HMM CPU/CUDA rows differ: {x} vs {y}")
+            gap = max(gap, abs(float(x[1]) - float(y[1])))
+            rows += 1
+    if not gap <= LLR_ATOL_CPU:
+        fail(f"--HMM CPU/CUDA LLRs differ by {gap} > {LLR_ATOL_CPU}")
+    return dict(reads=len(cpu), rows=rows, max_llr_gap=gap,
+                tol=LLR_ATOL_CPU)
+
+
+def fit_model(torch, arch, dev):
+    """(model, optimizer) of ``trainCNN --fit-arch arch`` on ``dev``."""
+    from dnascent_tpu_torch.models import cnn
+    from dnascent_tpu_torch.pipeline import traincnn as tc
+    if arch == "reference":
+        return tc.reference_arch_trainer(seed=SEED, device=dev)
+    model = cnn.init_untrained(cnn.DetectCNN(), seed=SEED).to(dev)
+    return model, tc.make_optimizer(list(model.parameters()))
+
+
+def phase8_fit(torch, np, models, dev, counters, records, tmp):
+    """8c: the training batches of ``records`` on CUDA, then 10 steps of
+    each architecture at full width; 8d: one step of each on CUDA and on
+    the CPU from equal weights."""
+    from dnascent_tpu_torch.config import DNA_R10
+    from dnascent_tpu_torch.models import cnn, reference_cnn
+    from dnascent_tpu_torch.pipeline import traincnn as tc
+
+    pairs = [(r, np.full(len(r.reference_seq), tc.LABEL_IDS["BrdU"],
+                         np.int32)) for r in records]
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    batches = list(tc.batches_from_labelled_reads(pairs, models, DNA_R10,
+                                                  device=dev))
+    torch.cuda.synchronize()
+    out = dict(batches=dict(
+        reads=len(records), batches=len(batches),
+        shape=list(batches[0].signal.shape) if batches else None,
+        labelled=int(sum(b.mask.sum() for b in batches)),
+        wall_s=time.perf_counter() - t0,
+        launches={k: c.count for k, c in counters.items()}))
+    if not batches or out["batches"]["labelled"] == 0:
+        fail("no training batches")
+    missing = [k for k in ("banded_fill", "banded_chase", "viterbi_fill",
+                           "viterbi_backtrace")
+               if out["batches"]["launches"][k] == 0]
+    if missing:
+        fail(f"kernels never launched on the training batches: {missing}")
+    steps = (batches * (-(-10 // len(batches))))[:10]
+    for arch in ("tpu", "reference"):
+        model, opt = fit_model(torch, arch, dev)
+        frozen = [p.detach().clone()
+                  for p in reference_cnn.frozen_parameters(model)] \
+            if arch == "reference" else []
+        tc.train_detect_cnn(steps[:1], model=model, optimizer=opt,
+                            device=dev)                   # warm-up step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counters["gru_encoder"].reset()
+        t0 = time.perf_counter()
+        _, losses = tc.train_detect_cnn(steps, model=model, optimizer=opt,
+                                        device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if not np.isfinite(losses).all():
+            fail(f"fit [{arch}]: non-finite losses {losses}")
+        if counters["gru_encoder"].count:
+            fail(f"fit [{arch}]: kernel F launched on float windows")
+        if arch == "reference" and not all(torch.equal(a, b) for a, b in zip(
+                frozen, reference_cnn.frozen_parameters(model))):
+            fail("fit [reference]: BatchNorm moving statistics changed")
+        path = os.path.join(tmp, f"fit_{arch}.npz")
+        tc.save_model(model, path)
+        with np.load(path) as data:
+            flat = {k: data[k] for k in data.files}
+        back = (reference_cnn.params_from_tree(
+            reference_cnn.ReferenceDetectCNN(), flat) if arch == "reference"
+            else cnn.params_from_flax(cnn.DetectCNN(), flat))
+        if not all(torch.equal(a.detach().cpu(), b) for a, b in zip(
+                model.parameters(), back.parameters())):
+            fail(f"fit [{arch}]: the npz does not read back")
+        out[arch] = dict(steps=len(losses),
+                         ms_per_step=wall / len(losses) * 1e3,
+                         peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                         loss_first=losses[0], loss_last=losses[-1],
+                         npz_keys=len(flat),
+                         params=sum(p.numel() for p in model.parameters()))
+    # 8d: one step on CUDA and on the CPU from equal weights
+    b0 = batches[0]
+    small = tc.TrainBatch(*(getattr(b0, f)[:2] for f in (
+        "core_idx", "residual_idx", "signal", "labels", "mask")))
+    for arch in ("tpu", "reference"):
+        losses = []
+        for d in ("cpu", dev):
+            model, opt = fit_model(torch, arch, d)
+            losses.append(tc.train_detect_cnn([small], model=model,
+                                              optimizer=opt, device=d)[1][0])
+        gap = abs(losses[0] - losses[1])
+        if not gap <= LOSS_ATOL_CPU:
+            fail(f"fit [{arch}]: CUDA/CPU losses {losses} differ by {gap}")
+        out[arch]["cuda_vs_cpu"] = dict(positions=int(small.mask.sum()),
+                                        losses=losses, gap=gap,
+                                        tol=LOSS_ATOL_CPU)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1182,6 +1483,17 @@ def main() -> int:
         p7["traingmm"] = phase7_traingmm(torch, np, models, dev, tmp)
     print("phase 7 align and training tables: " + json.dumps(p7), flush=True)
 
+    t8 = time.perf_counter()
+    records8, p8a = phase8_hmm(torch, np, models, dev, counters)
+    p8 = dict(hmm=p8a, hmm_cuda_vs_cpu=phase8_hmm_cpu_agreement(
+        torch, np, models, dev))
+    with tempfile.TemporaryDirectory() as tmp:
+        p8["fit"] = phase8_fit(torch, np, models, dev, counters,
+                               records8[:8], tmp)
+    p8["wall_s"] = time.perf_counter() - t8
+    print(f"phase 8 --HMM detect and CNN fitting ({smi}): "
+          + json.dumps(p8), flush=True)
+
     # (source, TPU kernel, the path whose launch count the table shows)
     meta = {
         "banded_fill": ("dnascent_tpu_torch/csrc/banded_fill.cu",
@@ -1198,7 +1510,8 @@ def main() -> int:
                         "dnascent_tpu/models/reference_cnn.py:171", p4),
     }
     paths = {"phase3": p3, "phase4": p4, "phase5": p5,
-             "phase6": p6["modbam"], "phase7": p7["strict"]}
+             "phase6": p6["modbam"], "phase7": p7["strict"],
+             "phase8_hmm": p8["hmm"], "phase8_fit": p8["fit"]["batches"]}
     kernels = []
     for name, (src, rep, path) in meta.items():
         row = rows[name]

@@ -1,6 +1,7 @@
 """Command-line interface of the port: ``index``, ``detect`` (``.detect`` or
-modbam ``.bam`` output), ``align``, ``forkSense``, ``seeBreaks``,
-``trainCNN`` (the training tables) and ``trainGMM``.
+modbam ``.bam`` output; ``--HMM`` for the forward-HMM log-likelihood
+ratios), ``align``, ``forkSense``, ``seeBreaks``, ``trainCNN`` (the
+training tables; ``--fit`` also fits a detect CNN) and ``trainGMM``.
 
 Run as ``python -m dnascent_tpu_torch <subprogram> ...`` or through the
 ``dnascent-tpu-torch`` entry point.  The flags are the JAX package's
@@ -11,8 +12,8 @@ DetectCNN (``--cnn-weights``) or the reference's trained topology (``--model
 <SavedModel dir>``, or ``--cnn-weights`` with an npz that ``trainCNN
 --fit-arch reference`` wrote).  ``index``, ``forkSense`` and ``seeBreaks``
 without ``--fast`` run on the host, as in the JAX package.  What is not
-ported yet (``--HMM``, ``trainCNN --fit``, multi-device and multi-process
-runs) is refused with an error rather than ignored.
+ported yet (multi-device and multi-process runs) is refused with an error
+rather than ignored.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ The subprograms are:
   trainCNN   build training data for neural network training,
   trainGMM   estimate the mean and standard deviation of a base analogue's current.
 
-Not ported yet: --HMM, trainCNN --fit, multi-device and multi-process runs.
+Not ported yet: multi-device and multi-process runs.
 """
 
 
@@ -97,7 +98,10 @@ def _detect_parser(prog: str, min_l_default: int):
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; cpu runs the "
                    "kernels' plain PyTorch versions)")
-    p.add_argument("--HMM", action="store_true", help="not ported yet")
+    p.add_argument("--HMM", action="store_true",
+                   help="detect: forward-HMM log-likelihood ratios instead "
+                   "of CNN calls (.detect output only); align and trainCNN "
+                   "accept it and ignore it, as the JAX CLI does")
     p.add_argument("--cnn-weights", default=None,
                    help="npz weights in the key layout "
                    "dnascent_tpu.models.cnn.save_params writes: the default "
@@ -119,11 +123,6 @@ def _detect_parser(prog: str, min_l_default: int):
                    help="reproduce the reference's sequential window "
                    "coupling (strict eventalign)")
     return p
-
-
-def _unported(a) -> list[str]:
-    """The front end's flags that are not ported yet, as given."""
-    return (["--HMM"] if a.HMM else []) + _distributed_flags(a)
 
 
 def _open_source(a):
@@ -204,17 +203,23 @@ def main_detect(argv) -> int:
         print(f"Exiting with error.  Invalid output extension: {ext}",
               file=sys.stderr)
         return 1
-    if _refused(_unported(a)):
+    if _refused(_distributed_flags(a)):
         return 1
     human_readable = ext == "detect"
+    if a.HMM and not human_readable:
+        print("--HMM supports human-readable output only (as in the "
+              "reference's legacy path)", file=sys.stderr)
+        return 1
 
     from .config import DNA_R10
     from .io.poremodel import load_model_set
+    from .io.writers import DetectHRWriter, detect_header
     from .pipeline.detect import DetectStats, detect_reads
     from .utils.progress import ProgressBar
 
     dev = _resolve_device(a.device)
-    model = _load_cnn(a, dev)
+    # the HMM path scores with the pore models alone: no CNN is loaded
+    model = None if a.HMM else _load_cnn(a, dev)
     cfg = DNA_R10
     models = load_model_set(cfg)
     src, missing = _open_source(a)
@@ -227,29 +232,44 @@ def main_detect(argv) -> int:
         print(f"resume: skipping {len(done_ids)} completed reads",
               file=sys.stderr)
         src = (r for r in src if r.read_id not in done_ids)
-    if human_readable:
-        from .io.writers import DetectHRWriter, detect_header
-        mode = "a" if done_ids else "w"
-        writer = DetectHRWriter(a.output, mode=mode)
-        if mode == "w":
-            writer.write_header(detect_header(
-                a.bam, a.reference, a.index, a.threads, a.quality, a.length,
-                compute="GPU" if dev.type == "cuda" else "CPU"))
-    else:
-        from .io.bam import BamReader
-        from .io.modbam import ModBamWriter
-        hdr = BamReader(a.bam)
-        hdr.close()
-        writer = ModBamWriter(a.output, hdr.header_text, hdr.ref_names,
-                              hdr.ref_lengths)
+    compute = "GPU" if dev.type == "cuda" else "CPU"
     stats = DetectStats()
     bar = ProgressBar(max(1, total - len(done_ids)))
-    with writer as w:
-        for _rid, d in detect_reads(src, models, model, cfg, device=dev,
-                                    stats=stats, collect_failures=True,
-                                    strict_windows=a.strict_windows):
-            if d is not None:
-                w.write(d)
+    if a.HMM:
+        from .pipeline.hmm_detect import hmm_detect_reads
+        # the file is reopened for writing even after --resume skipped the
+        # completed reads, so they are lost: the JAX CLI's behaviour,
+        # mirrored (ROADMAP section 3, reference quirks)
+        writer = DetectHRWriter(a.output)
+        writer.write_header(detect_header(
+            a.bam, a.reference, a.index, a.threads, a.quality, a.length,
+            compute=compute, mode="HMM"))
+        results = hmm_detect_reads(src, models, cfg, device=dev, stats=stats)
+        write = writer.write_text
+    else:
+        if human_readable:
+            mode = "a" if done_ids else "w"
+            writer = DetectHRWriter(a.output, mode=mode)
+            if mode == "w":
+                writer.write_header(detect_header(
+                    a.bam, a.reference, a.index, a.threads, a.quality,
+                    a.length, compute=compute))
+        else:
+            from .io.bam import BamReader
+            from .io.modbam import ModBamWriter
+            hdr = BamReader(a.bam)
+            hdr.close()
+            writer = ModBamWriter(a.output, hdr.header_text, hdr.ref_names,
+                                  hdr.ref_lengths)
+        results = detect_reads(src, models, model, cfg, device=dev,
+                               stats=stats, collect_failures=True,
+                               strict_windows=a.strict_windows)
+        write = writer.write
+    with writer:
+        # a read that failed QC comes as None
+        for _rid, out in results:
+            if out is not None:
+                write(out)
             bar.display(stats.processed, stats.failed)
     bar.display(stats.processed, stats.failed)
     bar.finish()
@@ -269,7 +289,7 @@ def main_align(argv) -> int:
                    "instead of the reference's sequential window coupling "
                    "(faster; rows differ where the couplings diverge)")
     a = p.parse_args(argv)
-    if _refused(_unported(a)):
+    if _refused(_distributed_flags(a)):
         return 1
     from .config import DNA_R10
     from .io.poremodel import load_model_set
@@ -302,34 +322,52 @@ def main_align(argv) -> int:
 def main_traincnn(argv) -> int:
     p = _detect_parser("trainCNN", 100)
     p.add_argument("--fit", default=None, metavar="OUT_NPZ",
-                   help="not ported yet")
+                   help="also fit a detect CNN on these reads and save its "
+                   "weights as the JAX package's npz (requires "
+                   "--fit-label); the reference only emits tables")
     p.add_argument("--fit-label", choices=sorted({"Thym", "BrdU", "EdU"}),
-                   default=None, help="not ported yet (with --fit)")
+                   default=None,
+                   help="sample-wide ground-truth class of this run: every "
+                   "T position carries it")
     p.add_argument("--fit-arch", choices=["tpu", "reference"], default="tpu",
-                   help="not ported yet (with --fit)")
-    p.add_argument("--fit-epochs", type=int, default=1,
-                   help="not ported yet (with --fit)")
-    p.add_argument("--fit-lr", type=float, default=3e-4,
-                   help="not ported yet (with --fit)")
+                   help="architecture to fit: the default DetectCNN (from "
+                   "the port's seeded untrained weights) or the reference's "
+                   "GRU+separable-conv topology (from its seeded synthetic "
+                   "weights, BatchNorm statistics frozen)")
+    p.add_argument("--fit-epochs", type=int, default=1)
+    p.add_argument("--fit-lr", type=float, default=3e-4)
     a = p.parse_args(argv)
-    if _refused(_unported(a) + (["trainCNN --fit"] if a.fit else [])):
+    if a.fit and a.fit_label is None:
+        print("Exiting with error.  --fit requires --fit-label.",
+              file=sys.stderr)
         return 1
+    if _refused(_distributed_flags(a)):
+        return 1
+    import numpy as np
+
     from .config import DNA_R10
     from .io.poremodel import load_model_set
-    from .pipeline.traincnn import generate_training_tables
+    from .pipeline import traincnn as tc
 
     dev = _resolve_device(a.device)
     model = _load_cnn(a, dev)
     models = load_model_set(DNA_R10)
     src, _missing = _open_source(a)
     n = 0
+    train_batches = []
     with open(a.output, "w") as fh:
         def flush(batch):
             nonlocal n
-            for text in generate_training_tables(batch, models, model,
-                                                 DNA_R10, device=dev):
+            for text in tc.generate_training_tables(batch, models, model,
+                                                    DNA_R10, device=dev):
                 fh.write(text)
                 n += 1
+            if a.fit:
+                lab = tc.LABEL_IDS[a.fit_label]
+                pairs = [(r, np.full(len(r.reference_seq), lab, np.int32))
+                         for r in batch]
+                train_batches.extend(tc.batches_from_labelled_reads(
+                    pairs, models, DNA_R10, device=dev))
 
         batch = []
         for rec in src:
@@ -340,6 +378,22 @@ def main_traincnn(argv) -> int:
         if batch:
             flush(batch)
     print(f"\ntrainCNN: {n} reads written")
+    if a.fit:
+        from .models import cnn as cnn_mod
+        if a.fit_arch == "reference":
+            fmodel, opt = tc.reference_arch_trainer(learning_rate=a.fit_lr,
+                                                    device=dev)
+        else:
+            # the JAX package starts from PRNGKey(0) weights, which torch
+            # cannot draw: the port starts from its own seeded weights
+            fmodel, opt = cnn_mod.init_untrained(cnn_mod.DetectCNN()), None
+        _fitted, losses = tc.train_detect_cnn(
+            train_batches, model=fmodel, learning_rate=a.fit_lr,
+            epochs=a.fit_epochs, optimizer=opt, checkpoint_path=a.fit,
+            device=dev)
+        if losses:
+            print(f"trainCNN fit [{a.fit_arch}]: {len(losses)} steps, "
+                  f"loss {losses[0]:.4f} -> {losses[-1]:.4f} -> {a.fit}")
     return 0
 
 

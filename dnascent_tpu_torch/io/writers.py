@@ -52,6 +52,10 @@ class DetectHRWriter:
         if lines:
             self._fh.write("\n".join(lines) + "\n")
 
+    def write_text(self, text: str) -> None:
+        """A read's block as ``hmm_detect_reads`` formats it (``--HMM``)."""
+        self._fh.write(text)
+
     def close(self) -> None:
         if self._fh:
             self._fh.close()

@@ -205,6 +205,28 @@ def params_from_flax(model: DetectCNN, flat: dict) -> DetectCNN:
     return model
 
 
+def save_params(model: DetectCNN, path: str) -> None:
+    """Write the weights as the npz ``dnascent_tpu.models.cnn.save_params``
+    writes, which both packages' ``detect --cnn-weights`` read: the key
+    layout of ``params_from_flax`` (its inverse), Dense kernels (in, out),
+    conv kernels (k, in, out), f32."""
+    def arr(t):
+        return t.detach().cpu().float().numpy()
+
+    flat = {}
+    for pre, mod in _flax_layers(model):
+        if isinstance(mod, LayerNorm):
+            flat[f"{pre}/scale"] = arr(mod.scale)
+        else:
+            w = mod.weight
+            flat[f"{pre}/kernel"] = arr(
+                w.t() if isinstance(mod, Dense) else w.permute(2, 1, 0))
+        flat[f"{pre}/bias"] = arr(mod.bias)
+    flat["params/Embed_0/embedding"] = arr(model.core_embed)
+    flat["params/Embed_1/embedding"] = arr(model.residual_embed)
+    np.savez(path, **flat)
+
+
 def load_npz(model: DetectCNN, path: str) -> DetectCNN:
     with np.load(path) as data:
         return params_from_flax(model, {k: data[k] for k in data.files})

@@ -5,8 +5,9 @@ The topology is fixed by the reference SavedModel's 268-tensor inventory
 (``dnascent_tpu/models/reference_cnn_manifest.json``):
 
 * a signal encoder of two stacked Keras-v2 GRU(16) cells over each
-  position's window of up to RAWDEPTH=20 raw samples (kernel F on a CUDA
-  device, ``ops/gru_cuda.py``; its plain twin on the CPU);
+  position's window of up to RAWDEPTH=20 raw samples (u8 windows: kernel F
+  on a CUDA device, ``ops/gru_cuda.py``, its plain twin on the CPU; float
+  windows, which training feeds: the plain scan on any device);
 * a parameter-free channel lift: [GRU state (16), core index, residual
   index] zero-padded to the trunk's 64 channels, as the JAX package
   reconstructs it (ROADMAP section 3: mirrored, not "fixed");
@@ -72,10 +73,11 @@ _TRAINABLE = {"gru0/kernel": 0, "gru0/recurrent": 1, "gru0/bias": 2,
 
 
 class GRUEncoder(nn.Module):
-    """The two GRU(16) cells.  A u8 window runs kernel F on a CUDA device
-    (its plain twin on the CPU).  A float window, which no detect path
-    builds, runs the plain scan on the CPU only, as the JAX module's float
-    path does; on any other device it raises."""
+    """The two GRU(16) cells.  A u8 window, the form every detect path
+    builds, runs kernel F on a CUDA device (its plain twin on the CPU).  A
+    float window, the form training batches carry, runs the plain scan on
+    any device, as the JAX module's float windows run its XLA scan on any
+    backend; it is differentiable."""
 
     def __init__(self):
         super().__init__()
@@ -98,9 +100,6 @@ class GRUEncoder(nn.Module):
         """(N, T) u8 codes or f32 samples (0.0 = padding) -> (N, 16)."""
         if signal.dtype == torch.uint8:
             return gru_encoder(signal.contiguous(), self.packed())
-        if signal.device.type != "cpu":
-            raise ValueError("the GRU encoder takes u8 windows on "
-                             f"{signal.device}, got {signal.dtype}")
         x = signal.float()
         return gru_ops.gru_scan_plain(x, x != 0.0, self.packed())
 
@@ -268,6 +267,44 @@ def params_from_tree(model: ReferenceDetectCNN,
         tensors[f"trainable{_TRAINABLE[key]}" if key in _TRAINABLE
                 else key] = value
     return params_from_tensors(model, tensors)
+
+
+def save_params(model: ReferenceDetectCNN, path: str) -> None:
+    """Write the weights as the npz the JAX package's ``trainCNN --fit-arch
+    reference`` writes, which both packages' ``detect --cnn-weights`` read:
+    the layout of ``params_from_tree`` (its inverse), TF layouts restored,
+    f32."""
+    def arr(t, perm=None):
+        t = t.detach().cpu().float()
+        return (t.permute(*perm) if perm else t).numpy()
+
+    g = model.gru
+    flat = {"gru0/kernel": arr(g.kernel0), "gru0/recurrent": arr(g.recurrent0),
+            "gru0/bias": arr(g.bias0), "gru1/kernel": arr(g.kernel1),
+            "gru1/recurrent": arr(g.recurrent1), "gru1/bias": arr(g.bias1),
+            "head/kernel": arr(model.head_kernel),
+            "head/bias": arr(model.head_bias)}
+    for i in _CONV_SHAPES:
+        flat[f"layer{i}/kernel"] = arr(model.layer(i).weight, (2, 1, 0))
+        flat[f"layer{i}/bias"] = arr(model.layer(i).bias)
+    for i in _SEP_SHAPES:
+        mod = model.layer(i)
+        flat[f"layer{i}/depthwise_kernel"] = arr(mod.depthwise, (2, 0, 1))
+        flat[f"layer{i}/pointwise_kernel"] = arr(mod.pointwise, (2, 1, 0))
+        flat[f"layer{i}/bias"] = arr(mod.bias)
+    for i in _BN_CH:
+        for part in _BN_PARTS:
+            flat[f"layer{i}/{part}"] = arr(getattr(model.layer(i), part))
+    np.savez(path, **flat)
+
+
+def frozen_parameters(model: ReferenceDetectCNN) -> list:
+    """The BatchNorm moving statistics: inference-time constants of the
+    checkpoint, not weights, so training leaves them out of the optimizer
+    (the JAX trainer's ``optax.set_to_zero``, which also spares them the
+    weight decay)."""
+    return [p for name, p in model.named_parameters()
+            if name.rsplit(".", 1)[-1] in ("moving_mean", "moving_variance")]
 
 
 def load_savedmodel(model_dir: str) -> ReferenceDetectCNN:

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import ClassVar, Optional
 
 import numpy as np
 import torch
@@ -55,8 +55,12 @@ STRICT_SPEC_FLOOR = 4
 
 @dataclass
 class AlignedPositions:
-    """Per-read aligned-position table in genome-walk order; the CNN input
-    windows travel as a flat u8 sample stream plus per-position counts."""
+    """Per-read aligned-position table in genome-walk order.  The raw-sample
+    windows exist in two forms: the flat u8 sample stream plus per-position
+    counts that detect's CNN takes, and ``signal``, the (P, RAWDEPTH) f32
+    zero-padded windows of scaled samples that training batches take, built
+    on first use from the scaled-sample store (scaled stream, each
+    position's first sample, its sample count)."""
 
     coord: np.ndarray         # (P,) reference coordinate
     kmer_start: np.ndarray    # (P,) index into reference_seq of the 9-mer
@@ -69,6 +73,25 @@ class AlignedPositions:
     indel_score: np.ndarray   # (P,)
     signal_u8_flat: np.ndarray  # flat u8, counts-ordered
     signal_counts: np.ndarray   # (P,) u8 = min(n_signals, RAWDEPTH)
+    # the scaled-sample store (scaled, seg_start, seg_nsig), set by
+    # eventalign, and the windows built from it: a cache, not fields, so
+    # the fields stay the per-position arrays
+    _sig_store: ClassVar[Optional[tuple]] = None
+    _signal: ClassVar[Optional[np.ndarray]] = None
+
+    @property
+    def signal(self) -> np.ndarray:
+        """(P, RAWDEPTH) f32 zero-padded windows of scaled samples."""
+        if self._signal is None:
+            scaled, seg_start, seg_nsig = self._sig_store
+            j = np.arange(RAWDEPTH)
+            gidx = seg_start[:, None] + j[None, :]
+            valid = j[None, :] < np.minimum(seg_nsig, RAWDEPTH)[:, None]
+            self._signal = np.where(
+                valid, scaled[np.clip(gidx, 0, scaled.shape[0] - 1)],
+                0.0).astype(np.float32)
+            self._sig_store = None
+        return self._signal
 
 
 @dataclass
@@ -565,7 +588,7 @@ def _positions(st: _ReadState, ws: _WindowSet, codes: np.ndarray,
     """Native post-processing of all of a read's window paths."""
     p = st.p
     (coord, kmer_start, query_idx, ref_idx, core, res, nsig, centerT,
-     indel, sig_flat, _store) = native.process_read_windows(
+     indel, sig_flat, store) = native.process_read_windows(
         codes, steps_per, ws.ns.astype(np.int64), ws.g_ev, ws.g0, ws.ri,
         ws.ref_coord, ws.indel, p.record.is_reverse, cfg.kmer_len,
         p.event_raw_start, p.event_raw_end, p.record.raw, p.shift, p.scale,
@@ -573,11 +596,13 @@ def _positions(st: _ReadState, ws: _WindowSet, codes: np.ndarray,
         SIG_QUANT_LO, SIG_QUANT_SCALE, RAWDEPTH)
     if coord.shape[0] == 0:
         return None
-    return AlignedPositions(
+    pos = AlignedPositions(
         coord=coord, kmer_start=kmer_start, query_idx=query_idx,
         ref_idx=ref_idx, core_idx=core, residual_idx=res, n_signals=nsig,
         center_is_T=centerT, indel_score=indel, signal_u8_flat=sig_flat,
         signal_counts=np.minimum(nsig, RAWDEPTH).astype(np.uint8))
+    pos._sig_store = store
+    return pos
 
 
 def _drop_called(pos: AlignedPositions,
@@ -589,10 +614,13 @@ def _drop_called(pos: AlignedPositions,
     if not keep.any():
         return None
     flat_keep = np.repeat(keep, pos.signal_counts.astype(np.int64))
-    return AlignedPositions(**{
+    out = AlignedPositions(**{
         f.name: getattr(pos, f.name)[flat_keep if f.name == "signal_u8_flat"
                                      else keep]
         for f in dataclasses.fields(pos)})
+    scaled, seg_start, seg_nsig = pos._sig_store
+    out._sig_store = (scaled, seg_start[keep], seg_nsig[keep])
+    return out
 
 
 def _read_text(st: _ReadState, ws: _WindowSet, codes: np.ndarray,

@@ -424,3 +424,84 @@ def test_em_prior_batch_cuda_matches_cpu(cuda):
     gpu = em_prior_batch(*(a.to(cuda) for a in args), 0.5, 0.01, 100)
     for a, b in zip(cpu, gpu):
         assert float((a - b.cpu()).abs().max()) <= 1e-5
+
+
+def test_hmm_forward_cuda_matches_cpu(cuda):
+    """The ``--HMM`` forward algorithm on CUDA against the CPU on 2048
+    seeded windows (n_obs 20..64, eight with n_states < 24): within 5e-5,
+    the CPU tolerance against the JAX package (the CPU's logcumsumexp
+    accumulates in f64, CUDA's in f32)."""
+    from dnascent_tpu_torch.ops.hmm import forward_batch
+    rng = np.random.default_rng(41)
+    W, T, N = 2048, 64, 24
+    mu = rng.normal(0, 1, (W, N)).astype(np.float32)
+    sd = rng.uniform(0.1, 0.3, (W, N)).astype(np.float32)
+    n_obs = rng.integers(20, T + 1, W).astype(np.int32)
+    ns = np.full(W, N, np.int32)
+    ns[:8] = rng.integers(2, N, 8)
+    obs = (mu[:, np.minimum(np.arange(T) // 2, N - 1)]
+           + rng.normal(0, 0.2, (W, T))).astype(np.float32)
+    epb = rng.uniform(1.5, 2.5, W).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (obs, n_obs, mu, sd, ns, epb)]
+    hmm = tuple(getattr(DNA_R10.hmm, k) for k in HMM_KEY)
+    cpu = forward_batch(*args, hmm)
+    gpu = forward_batch(*(a.to(cuda) for a in args), hmm).cpu()
+    assert torch.isfinite(gpu).all()
+    assert float((cpu - gpu).abs().max()) <= 5e-5
+
+
+def test_hmm_detect_cuda_matches_cpu(cuda, models):
+    """``hmm_detect_reads`` on CUDA and on the CPU, two simulated reads (one
+    reverse): every column equal but the LLR, within 1e-4."""
+    from dnascent_tpu_torch.pipeline.hmm_detect import hmm_detect_reads
+    recs = [dataclasses.replace(r, is_reverse=i % 2 == 1) for i, r in
+            enumerate(SimulatedSource(models, DNA_R10, n_reads=2,
+                                      length=1500, seed=43))]
+    cpu, gpu = (list(hmm_detect_reads(iter(recs), models, DNA_R10, device=d))
+                for d in ("cpu", cuda))
+    assert [r for r, _ in cpu] == [r for r, _ in gpu] and len(cpu) == 2
+    for (_, a), (_, b) in zip(cpu, gpu):
+        la, lb = a.splitlines(), b.splitlines()
+        assert len(la) == len(lb) > 100 and la[0] == lb[0]
+        for x, y in zip(la[1:], lb[1:]):
+            x, y = x.split("\t"), y.split("\t")
+            assert x[0] == y[0] and x[2:] == y[2:]
+            assert abs(float(x[1]) - float(y[1])) <= 1e-4
+
+
+@pytest.mark.parametrize("arch", ["tpu", "reference"])
+def test_train_step_cuda_matches_cpu(cuda, arch):
+    """One training step of each architecture from equal weights on one
+    seeded batch (2 x 1024 positions, f32 windows): the loss on CUDA within
+    1e-2 of the CPU's (bf16 layers: cuDNN against oneDNN), the BatchNorm
+    moving statistics of the reference topology unchanged, and the GRU
+    encoder left to the plain scan (float windows: kernel F not launched)."""
+    from dnascent_tpu_torch.models import cnn
+    from dnascent_tpu_torch.pipeline import traincnn as tc
+    rng = np.random.default_rng(47)
+    B, L = 2, 1024
+    sig = rng.normal(0, 1, (B, L, 20)).astype(np.float32)
+    sig[np.arange(20)[None, None, :] >= rng.integers(1, 21, (B, L))[
+        ..., None]] = 0.0
+    lab = np.where(rng.random((B, L)) < 0.3, 1, -1).astype(np.int32)
+    batch = tc.TrainBatch(rng.integers(1, 1025, (B, L)).astype(np.int32),
+                          rng.integers(1, 257, (B, L)).astype(np.int32),
+                          sig, lab, lab >= 0)
+    losses, frozen = [], []
+    for dev in ("cpu", cuda):
+        if arch == "tpu":
+            model, opt = cnn.init_untrained(cnn.DetectCNN(), seed=5), None
+        else:
+            model, opt = tc.reference_arch_trainer(seed=5, device=dev)
+            frozen.append([p.detach().cpu().clone() for p in
+                           reference_cnn.frozen_parameters(model)])
+        f0 = gru_cuda.LAUNCHES.count
+        _, loss = tc.train_detect_cnn([batch], model=model, optimizer=opt,
+                                      device=dev)
+        assert gru_cuda.LAUNCHES.count == f0
+        losses.append(loss[0])
+        if arch == "reference":
+            assert all(torch.equal(a, b.cpu()) for a, b in zip(
+                frozen[-1], reference_cnn.frozen_parameters(model)))
+    assert np.isfinite(losses).all()
+    assert abs(losses[0] - losses[1]) <= 1e-2, losses

@@ -1,6 +1,7 @@
 """PyTorch port: it imports and runs without jax and without the JAX
 package ``dnascent_tpu``, and its CLI refuses what is not ported rather
-than ignoring it."""
+than ignoring it (only the multi-device and multi-process flags are left),
+while it ignores ``--HMM`` on align and trainCNN, as the JAX CLI does."""
 
 import os
 import re
@@ -10,6 +11,9 @@ import sys
 import numpy as np
 import pytest
 
+# the CLI's progress bar binds sys.stderr when its module is first
+# imported: import it here, not under a test's capsys
+import dnascent_tpu_torch.utils.progress  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "dnascent_tpu_torch")
@@ -35,13 +39,13 @@ import numpy as np, torch
 import dnascent_tpu_torch
 import dnascent_tpu_torch.cli, dnascent_tpu_torch.__main__
 from dnascent_tpu_torch.pipeline import (align, detect, eventalign,
-                                         forksense, prep, seebreaks,
-                                         traincnn, traingmm)
+                                         forksense, hmm_detect, prep,
+                                         seebreaks, traincnn, traingmm)
 from dnascent_tpu_torch.io import index_io, modbam, writers
 from dnascent_tpu_torch.testing import forks
 from dnascent_tpu_torch.tools import bedgraph
 from dnascent_tpu_torch.models import cnn, reference_cnn
-from dnascent_tpu_torch.ops import banded_cuda, gru_cuda, viterbi_cuda
+from dnascent_tpu_torch.ops import banded_cuda, gru_cuda, hmm, viterbi_cuda
 rng = np.random.default_rng(0)
 ev = torch.from_numpy(rng.normal(0, 1, (2, 60)).astype(np.float32))
 mu = torch.from_numpy(rng.normal(0, 1, (2, 40)).astype(np.float32))
@@ -73,6 +77,10 @@ out = dict(detect.detect_reads(SimulatedSource(pms, DNA_R10, n_reads=1,
                                                length=1200, seed=3),
                                pms, small, DNA_R10, device="cpu"))
 assert len(out) == 1 and all(d.ref_coords.size for d in out.values())
+text = dict(hmm_detect.hmm_detect_reads(
+    SimulatedSource(pms, DNA_R10, n_reads=1, length=1200, seed=3), pms,
+    DNA_R10, device="cpu"))
+assert len(text) == 1 and all(t.count("\n") > 1 for t in text.values())
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not bad, bad
 print("NO_JAX_OK")
@@ -120,15 +128,14 @@ def test_cli_refuses_unported_features(tmp_path, capsys):
     see_breaks = ["seeBreaks", "-r", "r.bed", "-a", "a.bed", "-d", "x.detect",
                   "-o", str(tmp_path / "o.seeBreaks")]
     align = ["align", *base[1:], "-o", str(tmp_path / "o.align")]
-    for argv in (base + ["-o", str(tmp_path / "o.detect"), "--HMM"],
+    for argv in (base + ["-o", str(tmp_path / "o.bam"), "--nprocs", "2"],
                  ["trainCNN", *base[1:], "-o", str(tmp_path / "o.trainCNN"),
-                  "--fit", str(tmp_path / "fit.npz")],
-                 base + ["-o", str(tmp_path / "o.bam"), "--nprocs", "2"],
+                  "--fit", str(tmp_path / "fit.npz"), "--fit-label", "BrdU",
+                  "--procid", "1"],
                  fork_sense + ["--nprocs", "2"],
                  see_breaks + ["--nprocs", "2"],
                  see_breaks + ["--fast", "--coordinator", "h:1"],
-                 align + ["--HMM"], align + ["--nprocs", "2"],
-                 align + ["--devices", "2"]):
+                 align + ["--nprocs", "2"], align + ["--devices", "2"]):
         assert cli.main(argv) == 1
         assert "Not ported" in capsys.readouterr().err
     assert not list(tmp_path.iterdir())
@@ -171,3 +178,27 @@ def test_cli_detect_runs_with_untrained_weights(tmp_path, models):
     assert "skipping 2 completed reads" in res.stderr
     with open(out) as fh:
         assert fh.read() == text
+
+
+def test_cli_ignores_hmm_on_align_and_traincnn(tmp_path, models,
+                                               monkeypatch):
+    """``align --HMM`` and ``trainCNN --HMM`` write what they write without
+    the flag, byte for byte, as the JAX CLI's shared parser accepts the
+    flag there and only detect reads it."""
+    from dnascent_tpu.testing.dataset import build_dataset
+    from dnascent_tpu_torch import cli
+
+    ds = build_dataset(str(tmp_path / "ds"), models, n_reads=2,
+                       read_length=1200, signal_format="fast5", seed=3)
+    monkeypatch.setenv("DNASCENT_TPU_MODELS", "/nonexistent")
+    io = ["-b", ds.bam, "-r", ds.reference_fa, "-i", ds.index, "-l", "100",
+          "--device", "cpu"]
+    for sub, extra in (("align", ["--fast-windows"]),
+                       ("trainCNN", ["--allow-untrained-cnn"])):
+        texts = []
+        for flag in ([], ["--HMM"]):
+            out = str(tmp_path / f"{sub}{len(flag)}.out")
+            assert cli.main([sub, *io, "-o", out, *extra, *flag]) == 0
+            with open(out) as fh:
+                texts.append(fh.read())
+        assert texts[0] and texts[0] == texts[1], sub

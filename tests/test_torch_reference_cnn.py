@@ -2,6 +2,7 @@
 F's plain twin, against the JAX package's ``models/reference_cnn.py`` on
 the same seeded inputs (CPU)."""
 
+import copy
 import os
 import subprocess
 import sys
@@ -260,9 +261,18 @@ def test_float_window_matches_jax(monkeypatch):
     with torch.no_grad():
         ours = model(_t(core), _t(core), _t(sig)).numpy()
     np.testing.assert_allclose(ours, ref, atol=F32_ATOL)
-    # off the CPU a float window raises: only u8 windows reach kernel F
-    with pytest.raises(ValueError, match="u8 windows"):
-        model.gru(torch.zeros((4, rc.RAWDEPTH), device="meta"))
+    # a float window takes the plain scan off the CPU too (here the meta
+    # device: shapes only), as training feeds it; only u8 windows reach
+    # kernel F's wrapper, and the detect path builds u8 windows only
+    enc = copy.deepcopy(model.gru).to("meta")
+    h = enc(torch.zeros((4, rc.RAWDEPTH), device="meta"))
+    assert h.device.type == "meta" and tuple(h.shape) == (4, 16)
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        enc(torch.zeros((4, rc.RAWDEPTH), dtype=torch.uint8, device="meta"))
+    from dnascent_tpu_torch.pipeline.detect import _signal_windows
+    assert _signal_windows(torch.zeros(3, dtype=torch.uint8),
+                           torch.ones((1, 3), dtype=torch.uint8), 1,
+                           3).dtype == torch.uint8
 
 
 def test_seed_affine_draws_every_bias_and_bn_stat():
