@@ -84,7 +84,25 @@ Phases, one line each:
      the plain scan), and the npz written and read back into equal weights;
      (d) one step of each architecture on CUDA and on the CPU from equal
      weights on 2 x 1024 positions of (c)'s first batch: losses within
-     1e-2.
+     1e-2;
+  9. multi-device and multi-process runs (``dnascent_tpu_torch/parallel``):
+     (a) phase 3's 64 reads through ``detect_reads`` on the device set
+     [cuda:0], then [cuda:0, cuda:0] (two replicas whose batches
+     alternate): both ``.detect`` bodies byte-equal to phase 3's, A-D's
+     launches and reads/s of each run; (b) two worker processes on the
+     card, each running its shard ``records[k::2]`` through
+     ``detect_reads`` into ``<out>.host<k>``, then joining a gloo group at a
+     free localhost port: the per-read call counts gathered by ordinal
+     equal (a)'s vector, and process 0's merge of the shards equals (a)'s
+     text through the same merge; (c) in the same workers, the forkSense
+     and seeBreaks CLIs with ``--coordinator localhost:<port> --nprocs 2
+     --procid k`` on phase 6's 1024 fork reads, against single runs here:
+     the same ``#EstimatedRegion`` lines, sorted blocks and beds, and
+     seeBreaks output; (d) ``data_parallel_train_step`` with two full-width
+     DetectCNN replicas on cuda:0 against one, one step at 8 x 1024
+     positions: the loss gap and the largest parameter gap; (e)
+     ``sequence_sharded_apply`` with two shards along 8 x 4096 positions
+     against the unsharded forward: the largest gap.
 Each path's launch counts are set to 0 just before it and read just after.
 The shapes of phases 3-5 (each path's C launches and F's live-step
 histogram, recorded by observers around the wrappers) show whether phase
@@ -608,6 +626,19 @@ def modbam_agreement(np, bam_path, detect_path):
                 max_prob_diff=err, tol=1 / 255 + 1e-6)
 
 
+def detect_body(path):
+    """(read records, SHA-256 of the lines that are not header lines) of a
+    ``.detect`` file: its bytes but the run's start time."""
+    import hashlib
+    h, n = hashlib.sha256(), 0
+    with open(path, "rb") as fh:
+        for line in fh:
+            if not line.startswith(b"#"):
+                h.update(line)
+                n += line.startswith(b">")
+    return n, h.hexdigest()
+
+
 def drive(torch, np, models, model, dev, counters, required, n_reads=64,
           length=10000, absent=(), modbam=False):
     """One path: ``n_reads`` reads of ``length`` at batch 32 through
@@ -660,8 +691,7 @@ def drive(torch, np, models, model, dev, counters, required, n_reads=64,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {k: c.count for k, c in counters.items()}
-        with open(out) as fh:
-            headers = sum(1 for line in fh if line.startswith(">"))
+        headers, body = detect_body(out)
         readback = modbam_agreement(np, bam_out, out) if modbam else None
     peak = torch.cuda.max_memory_allocated()
     if headers != n_written or n_written == 0:
@@ -679,7 +709,8 @@ def drive(torch, np, models, model, dev, counters, required, n_reads=64,
     res = dict(reads=n_reads, passed=n_written, failed_qc=stats.failed,
                called_sites=n_sites, wall_s=wall,
                reads_per_s=n_reads / wall, peak_mem_bytes=peak,
-               launches=launches, shapes=shapes.report())
+               launches=launches, shapes=shapes.report(),
+               body_sha256=body)
     if readback is not None:
         res["modbam_readback"] = readback
     return res
@@ -1397,6 +1428,338 @@ def phase8_fit(torch, np, models, dev, counters, records, tmp):
     return out
 
 
+# one of phase 9's two worker processes on the card: 9b (its shard of the
+# main path's reads through detect_reads, a gloo group at a free localhost
+# port, the gather of the per-read call counts, a barrier, process 0's
+# merge), then 9c (the forkSense and seeBreaks CLIs with --coordinator);
+# it imports nothing of jax or the JAX package
+PHASE9_WORKER = r"""
+import json, os, sys, time
+for _mod in ("jax", "flax", "optax", "dnascent_tpu"):
+    sys.modules[_mod] = None
+k, tmp, root, port_b, port_fs, port_sb = sys.argv[1:7]
+k = int(k)
+sys.path.insert(0, root)
+import numpy as np
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from dnascent_tpu_torch import cli
+from dnascent_tpu_torch.config import DNA_R10
+from dnascent_tpu_torch.io.poremodel import synthetic_model_set
+from dnascent_tpu_torch.io.writers import DetectHRWriter, detect_header
+from dnascent_tpu_torch.models import cnn
+from dnascent_tpu_torch.ops import banded_cuda, cuda_lib, viterbi_cuda
+from dnascent_tpu_torch.parallel import collectives, merge, mesh
+from dnascent_tpu_torch.pipeline.detect import detect_reads
+from dnascent_tpu_torch.pipeline.source import SimulatedSource
+
+seed = int(os.environ["SMOKE_SEED"])
+cuda_lib.lib(verbose=True)          # the library phase 0 built
+t0 = time.perf_counter()
+models = synthetic_model_set(DNA_R10)
+records = list(SimulatedSource(models, DNA_R10, n_reads=64, length=10000,
+                               seed=seed + 300))[k::2]
+model = cnn.init_untrained(cnn.DetectCNN(), seed=seed).to("cuda")
+out = os.path.join(tmp, "phase9.detect")
+shard = merge.host_shard_path(out, k)
+counts = []
+with DetectHRWriter(shard) as w:
+    w.write_header(detect_header("simulated", "simulated", "none", 1, 20,
+                                 1000, compute="GPU"))
+    for _rid, d in detect_reads(records, models, model, DNA_R10,
+                                device="cuda", batch_size=32,
+                                collect_failures=True):
+        if d is not None:
+            w.write(d)
+        counts.append(0 if d is None else d.ref_coords.shape[0])
+torch.cuda.synchronize()
+res = dict(detect_s=time.perf_counter() - t0,
+           launches=dict(A=banded_cuda.FILL_LAUNCHES.count,
+                         B=banded_cuda.CHASE_LAUNCHES.count,
+                         C=viterbi_cuda.FILL_LAUNCHES.count,
+                         D=viterbi_cuda.BACKTRACE_LAUNCHES.count))
+t0 = time.perf_counter()
+mesh.init_distributed(f"localhost:{port_b}", 2, k)
+ordinals = np.arange(k, 64, 2)
+gathered = collectives.gather_ordered(np.asarray(counts, np.int64), ordinals)
+collectives.barrier("phase9_detect_done")
+if k == 0:
+    res["merged_reads"] = merge.merge_host_outputs(
+        [merge.host_shard_path(out, i) for i in range(2)], out)
+    res["gathered_counts"] = gathered.tolist()
+mesh.shutdown_distributed()
+res["group_s"] = time.perf_counter() - t0
+
+def group(port):
+    return ["--coordinator", f"localhost:{port}", "--nprocs", "2",
+            "--procid", str(k)]
+
+t0 = time.perf_counter()
+os.chdir(os.path.join(tmp, "sharded"))
+rc = cli.main(["forkSense", "-d", os.path.join(tmp, "forks.detect"),
+               "-o", "sharded.forkSense", "--order", "EdU,BrdU",
+               "--markForks", "--markAnalogues", *group(port_fs)])
+res["forksense_s"] = time.perf_counter() - t0
+if rc == 0:
+    # seeBreaks reads the single run's beds, which the parent writes
+    ready = os.path.join(tmp, "single", "ready")
+    deadline = time.time() + 300
+    while not os.path.exists(ready) and time.time() < deadline:
+        time.sleep(0.2)
+    t0 = time.perf_counter()
+    single = os.path.join(tmp, "single")
+    rc = cli.main(["seeBreaks", "-l",
+                   os.path.join(single, "leftForks_DNAscent_forkSense.bed"),
+                   "-r",
+                   os.path.join(single, "rightForks_DNAscent_forkSense.bed"),
+                   "-a", os.path.join(single, "BrdU_DNAscent_forkSense.bed"),
+                   "-d", os.path.join(tmp, "forks.detect"),
+                   "-o", "sharded.seeBreaks", *group(port_sb)])
+    res["seebreaks_s"] = time.perf_counter() - t0
+with open(os.path.join(tmp, f"worker{k}.json"), "w") as fh:
+    json.dump(res, fh)
+sys.exit(rc)
+"""
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase9a(torch, np, models, model, counters, records, tmp, p3):
+    """9a: the main path's 64 reads through ``detect_reads`` on the device
+    set [cuda:0], then [cuda:0, cuda:0] (two replicas whose batches
+    alternate): both ``.detect`` bodies byte-equal to phase 3's; the second
+    run is phase 9's path for the launch counts.  Returns the results, the
+    per-read call counts in read order and the two-replica file."""
+    from dnascent_tpu_torch.config import DNA_R10
+    from dnascent_tpu_torch.io.writers import DetectHRWriter, detect_header
+    from dnascent_tpu_torch.pipeline.detect import detect_reads
+
+    out = {}
+    for name, devices in (("one", ["cuda:0"]), ("two", ["cuda:0"] * 2)):
+        path = os.path.join(tmp, f"phase9a_{name}.detect")
+        counts = []
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.reset()
+        t0 = time.perf_counter()
+        with DetectHRWriter(path) as w:
+            w.write_header(detect_header("simulated", "simulated", "none", 1,
+                                         20, 1000, compute="GPU"))
+            for _rid, d in detect_reads(iter(records), models, model,
+                                        DNA_R10, device=devices,
+                                        batch_size=32,
+                                        collect_failures=True):
+                if d is not None:
+                    w.write(d)
+                counts.append(0 if d is None else d.ref_coords.shape[0])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: c.count for k, c in counters.items()}
+        n, body = detect_body(path)
+        if body != p3["body_sha256"] or n != p3["passed"]:
+            fail(f"9a on {devices}: .detect body differs from phase 3's")
+        out[name] = dict(devices=devices, reads=len(records), wall_s=wall,
+                         reads_per_s=len(records) / wall, launches=launches,
+                         byte_equal_to_phase3=True)
+    missing = [k for k in ("banded_fill", "banded_chase", "viterbi_fill",
+                           "viterbi_backtrace") if out["two"]["launches"][k]
+               == 0]
+    wrong = [k for k in ("banded_fill_general", "gru_encoder")
+             if out["two"]["launches"][k]]
+    if missing or wrong:
+        fail(f"9a two replicas: never launched {missing}, launched {wrong}")
+    out["launches"] = out["two"]["launches"]
+    return out, counts, path
+
+
+def phase9_processes(torch, np, tmp, counts, single_path):
+    """9b and 9c: two worker processes on the card (``PHASE9_WORKER``);
+    meanwhile the single runs of forkSense and seeBreaks here, on phase 6's
+    fork reads.  9b: the gathered call counts equal 9a's vector and the
+    merged body equals 9a's text put through the same merge; 9c: the merged
+    forkSense output carries the single run's ``#EstimatedRegion`` lines,
+    blocks and beds, seeBreaks the single run's output."""
+    from dnascent_tpu_torch import cli
+    from dnascent_tpu_torch.parallel.merge import merge_host_outputs
+    from dnascent_tpu_torch.testing.forks import (varied_fork_reads,
+                                                  write_detect_file)
+
+    forks = os.path.join(tmp, "forks.detect")
+    fork_reads = varied_fork_reads(512, 512, seed=SEED)
+    write_detect_file(fork_reads, forks)
+    single, sharded = os.path.join(tmp, "single"), os.path.join(tmp, "sharded")
+    os.makedirs(single)
+    os.makedirs(sharded)
+    env = dict(os.environ, PYTHONPATH=ROOT, SMOKE_SEED=str(SEED))
+    env.pop("RANK", None)
+    ports = [str(free_port()) for _ in range(3)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", PHASE9_WORKER, str(k), tmp, ROOT, *ports],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for k in range(2)]
+    try:
+        t1 = time.perf_counter()
+        cwd = os.getcwd()
+        os.chdir(single)
+        try:
+            with contextlib.redirect_stdout(io.StringIO()), \
+                    contextlib.redirect_stderr(io.StringIO()):
+                rc = cli.main(["forkSense", "-d", forks, "-o",
+                               "single.forkSense", "--order", "EdU,BrdU",
+                               "--markForks", "--markAnalogues"])
+                # the bed paths as the workers give them: seeBreaks writes
+                # them into its header
+                bed = lambda name: os.path.join(  # noqa: E731
+                    single, f"{name}_DNAscent_forkSense.bed")
+                rc = rc or cli.main([
+                    "seeBreaks", "-l", bed("leftForks"), "-r",
+                    bed("rightForks"), "-a", bed("BrdU"), "-d", forks,
+                    "-o", "single.seeBreaks"])
+        finally:
+            os.chdir(cwd)
+        if rc != 0:
+            fail(f"9c single forkSense/seeBreaks returned {rc}")
+        open(os.path.join(single, "ready"), "w").close()
+        single_s = time.perf_counter() - t1
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    for k, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            fail(f"phase 9 worker {k} exited {p.returncode}:\n{log[-3000:]}")
+    workers = []
+    for k in range(2):
+        with open(os.path.join(tmp, f"worker{k}.json")) as fh:
+            workers.append(json.load(fh))
+    # 9b
+    if workers[0]["gathered_counts"] != counts:
+        fail("9b: the gathered per-read call counts differ from 9a's")
+    canon = os.path.join(tmp, "phase9a.canon.detect")
+    merge_host_outputs([single_path], canon)
+    merged = os.path.join(tmp, "phase9.detect")
+    if detect_body(merged) != detect_body(canon):
+        fail("9b: the merged shards differ from 9a's text through the merge")
+    for k, w in enumerate(workers):
+        if min(w["launches"].values()) == 0:
+            fail(f"9b worker {k}: a kernel of A-D never launched")
+
+    # 9c
+    def lines(path, keep=lambda l: not l.startswith("#")):
+        with open(path) as fh:
+            return [l for l in fh if keep(l)]
+
+    est = lambda l: l.startswith("#EstimatedRegion")  # noqa: E731
+    fs_s, fs_m = (os.path.join(single, "single.forkSense"),
+                  os.path.join(sharded, "sharded.forkSense"))
+    if lines(fs_s, est) != lines(fs_m, est) or len(lines(fs_s, est)) != 2:
+        fail("9c: #EstimatedRegion lines differ")
+    if sorted(lines(fs_s)) != sorted(lines(fs_m)):
+        fail("9c: forkSense blocks differ")
+    beds = {}
+    for bed in ("leftForks", "rightForks", "BrdU", "EdU"):
+        name = f"{bed}_DNAscent_forkSense.bed"
+        a, b = (sorted(lines(os.path.join(d, name))) for d in (single,
+                                                              sharded))
+        if a != b:
+            fail(f"9c: {name} differs")
+        beds[bed] = len(a)
+    no_time = lambda l: not l.startswith("#SystemStartTime")  # noqa: E731
+    if (lines(os.path.join(single, "single.seeBreaks"), no_time)
+            != lines(os.path.join(sharded, "sharded.seeBreaks"), no_time)):
+        fail("9c: seeBreaks output differs")
+    return dict(
+        b=dict(reads=len(counts), merged_reads=workers[0]["merged_reads"],
+               gathered_equal=True, merged_equal=True,
+               worker_detect_s=[w["detect_s"] for w in workers],
+               worker_group_s=[w["group_s"] for w in workers],
+               worker_launches=[w["launches"] for w in workers]),
+        c=dict(fork_reads=len(fork_reads), bed_rows=beds,
+               estimated_equal=True, body_lines=len(lines(fs_s)),
+               seebreaks_equal=True,
+               single_s=single_s,
+               worker_forksense_s=[w["forksense_s"] for w in workers],
+               worker_seebreaks_s=[w["seebreaks_s"] for w in workers]),
+        bc_wall_s=time.perf_counter() - t0)
+
+
+def phase9d(torch, np, dev):
+    """9d: ``data_parallel_train_step`` with two full-width DetectCNN
+    replicas on cuda:0 against one replica, one step at 8 x 1024 positions
+    from equal weights: the loss gap and the largest parameter gap."""
+    import copy
+    from dnascent_tpu_torch.models import cnn
+    from dnascent_tpu_torch.parallel.mesh import data_parallel_train_step
+    from dnascent_tpu_torch.pipeline.traincnn import make_optimizer
+
+    rng = np.random.default_rng(SEED + 900)
+    B, L = 8, 1024
+    batch = dict(
+        core=rng.integers(1, cnn.CORE_VOCAB, (B, L)).astype(np.int64),
+        residual=rng.integers(1, cnn.RESIDUAL_VOCAB, (B, L)).astype(np.int64),
+        signal=rng.normal(0, 1, (B, L, cnn.RAWDEPTH)).astype(np.float32),
+        labels=rng.integers(0, 3, (B, L)).astype(np.int64),
+        mask=rng.random((B, L)) < 0.9)
+    base = cnn.init_untrained(cnn.DetectCNN(), seed=SEED).to(dev)
+    lr = 3e-4
+    got = {}
+    for n in (1, 2):
+        model = copy.deepcopy(base)
+        step = data_parallel_train_step(
+            model, make_optimizer(list(model.parameters()), lr), [dev] * n)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(step(batch))
+        torch.cuda.synchronize()
+        got[n] = (loss, (time.perf_counter() - t0) * 1e3,
+                  dict(model.named_parameters()))
+    loss_gap = abs(got[2][0] - got[1][0])
+    param_gap = max(float((got[2][2][k] - got[1][2][k]).detach().abs()
+                          .max()) for k in got[1][2])
+    # a first AdamW step moves each weight by at most lr (and its decay),
+    # so two steps whose bf16 gradients differ in sign differ by < 2 lr
+    if not (np.isfinite(got[2][0]) and loss_gap <= LOSS_ATOL_CPU
+            and param_gap <= 2 * lr * 1.01):
+        fail(f"9d: loss gap {loss_gap}, parameter gap {param_gap}")
+    return dict(positions=B * L, losses=[got[1][0], got[2][0]],
+                loss_gap=loss_gap, max_param_gap=param_gap,
+                step_ms=[got[1][1], got[2][1]], lr=lr,
+                tol=dict(loss=LOSS_ATOL_CPU, param=2 * lr * 1.01))
+
+
+def phase9e(torch, np, model, dev):
+    """9e: ``sequence_sharded_apply`` with two shards (cuda:0 twice) along
+    8 x 4096 positions against the unsharded forward of the same model:
+    the largest probability gap."""
+    from dnascent_tpu_torch.models import cnn
+    from dnascent_tpu_torch.parallel.mesh import sequence_sharded_apply
+
+    rng = np.random.default_rng(SEED + 901)
+    B, L = 8, 4096
+    args = [torch.from_numpy(a).to(dev) for a in (
+        rng.integers(1, cnn.CORE_VOCAB, (B, L)),
+        rng.integers(1, cnn.RESIDUAL_VOCAB, (B, L)),
+        rng.normal(0, 1, (B, L, cnn.RAWDEPTH)).astype(np.float32))]
+    apply = sequence_sharded_apply(model, [dev, dev])
+    with torch.no_grad():
+        whole = model(*args)
+        sharded = apply(*args)
+    torch.cuda.synchronize()
+    gap = float((whole - sharded).abs().max())
+    if sharded.shape != whole.shape or not gap <= PROB_ATOL_CPU:
+        fail(f"9e: sharded apply differs from the whole forward by {gap}")
+    return dict(shape=list(whole.shape), halo=model.receptive_field() // 2,
+                max_gap=gap, tol=PROB_ATOL_CPU)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1409,6 +1772,7 @@ def main() -> int:
     from dnascent_tpu_torch.ops import (banded_cuda, cuda_lib, gru_cuda,
                                         viterbi_cuda)
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1494,6 +1858,25 @@ def main() -> int:
     print(f"phase 8 --HMM detect and CNN fitting ({smi}): "
           + json.dumps(p8), flush=True)
 
+    t9 = time.perf_counter()
+    from dnascent_tpu_torch.pipeline.source import SimulatedSource
+    records9 = list(SimulatedSource(models, DNA_R10, n_reads=64,
+                                    length=10000, seed=SEED + 300))
+    with tempfile.TemporaryDirectory() as tmp:
+        p9a, counts9, single9 = phase9a(torch, np, models, model, counters,
+                                        records9, tmp, p3)
+        p9 = dict(a=p9a, a_wall_s=time.perf_counter() - t9)
+        p9.update(phase9_processes(torch, np, tmp, counts9, single9))
+    t = time.perf_counter()
+    p9["d"] = phase9d(torch, np, dev)
+    p9["d_wall_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    p9["e"] = phase9e(torch, np, model, dev)
+    p9["e_wall_s"] = time.perf_counter() - t
+    p9["wall_s"] = time.perf_counter() - t9
+    print(f"phase 9 multi-device and multi-process runs ({smi}): "
+          + json.dumps(p9), flush=True)
+
     # (source, TPU kernel, the path whose launch count the table shows)
     meta = {
         "banded_fill": ("dnascent_tpu_torch/csrc/banded_fill.cu",
@@ -1511,7 +1894,8 @@ def main() -> int:
     }
     paths = {"phase3": p3, "phase4": p4, "phase5": p5,
              "phase6": p6["modbam"], "phase7": p7["strict"],
-             "phase8_hmm": p8["hmm"], "phase8_fit": p8["fit"]["batches"]}
+             "phase8_hmm": p8["hmm"], "phase8_fit": p8["fit"]["batches"],
+             "phase9": p9["a"]}
     kernels = []
     for name, (src, rep, path) in meta.items():
         row = rows[name]
@@ -1528,6 +1912,7 @@ def main() -> int:
             library_note=LIBRARY_NOTES[name], bytes=row["bytes"],
             library_gru_ms=row.get("library_gru_ms"), ops=row["ops"],
             shape=row["shape"]))
+    print(f"total wall: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,10 @@
-"""Placement on one explicit device (the port of ``parallel/compute.py``).
+"""Placement on one explicit device.
 
-The JAX package places arrays through an optional data-parallel mesh; the
-port runs on one device named by the caller, so placement is a copy to that
-device and row padding is the identity.  Multi-GPU runs are later work.
+The JAX package places arrays through an optional data-parallel mesh
+(``dnascent_tpu/parallel/compute.py``); the port runs each batch whole on
+one device named by the caller, so placement is a copy to that device and
+row padding is the identity.  Runs over several devices send whole batches
+to each (``parallel/compute.py``).
 """
 
 from __future__ import annotations

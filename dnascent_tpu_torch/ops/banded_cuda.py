@@ -64,11 +64,12 @@ def banded_fill_lean(events: torch.Tensor, mu: torch.Tensor,
     W = bandwidth
     S = n_fill_steps(E, K)
     out = _fill_outputs(S, B, W, dev)
-    err = cuda_lib.lib().dt_banded_fill_lean(
-        events.data_ptr(), mu.data_ptr(), n_events.data_ptr(),
-        n_kmers.data_ptr(), lp_stay.data_ptr(), lp_step.data_ptr(),
-        B, E, K, W, S, lp_skip, lp_trim, h_c, *(t.data_ptr() for t in out),
-        cuda_lib.stream_handle(dev))
+    with cuda_lib.on_device(dev):
+        err = cuda_lib.lib().dt_banded_fill_lean(
+            events.data_ptr(), mu.data_ptr(), n_events.data_ptr(),
+            n_kmers.data_ptr(), lp_stay.data_ptr(), lp_step.data_ptr(),
+            B, E, K, W, S, lp_skip, lp_trim, h_c,
+            *(t.data_ptr() for t in out), cuda_lib.stream_handle(dev))
     cuda_lib.check(err, "banded_fill_lean")
     FILL_LAUNCHES.add()
     return out
@@ -104,11 +105,12 @@ def banded_fill_general(events: torch.Tensor, mu: torch.Tensor,
     W = bandwidth
     S = n_fill_steps(E, K)
     out = _fill_outputs(S, B, W, dev)
-    err = cuda_lib.lib().dt_banded_fill_general(
-        events.data_ptr(), cA.data_ptr(), cB.data_ptr(), cC.data_ptr(),
-        n_events.data_ptr(), n_kmers.data_ptr(), lp_stay.data_ptr(),
-        lp_step.data_ptr(), B, E, K, W, S, lp_skip, lp_trim,
-        *(t.data_ptr() for t in out), cuda_lib.stream_handle(dev))
+    with cuda_lib.on_device(dev):
+        err = cuda_lib.lib().dt_banded_fill_general(
+            events.data_ptr(), cA.data_ptr(), cB.data_ptr(), cC.data_ptr(),
+            n_events.data_ptr(), n_kmers.data_ptr(), lp_stay.data_ptr(),
+            lp_step.data_ptr(), B, E, K, W, S, lp_skip, lp_trim,
+            *(t.data_ptr() for t in out), cuda_lib.stream_handle(dev))
     cuda_lib.check(err, "banded_fill_general")
     GENERAL_FILL_LAUNCHES.add()
     return out
@@ -132,10 +134,11 @@ def backtrace_moves(trace: torch.Tensor, rights: torch.Tensor,
                                      bandwidth)
     Sp = chase_rows(S)
     out = torch.empty((Sp, B), dtype=torch.uint8, device=dev)
-    err = cuda_lib.lib().dt_banded_chase(
-        trace.data_ptr(), rights.data_ptr(), best_event.data_ptr(),
-        n_kmers.data_ptr(), S, Sp, B, W, out.data_ptr(),
-        cuda_lib.stream_handle(dev))
+    with cuda_lib.on_device(dev):
+        err = cuda_lib.lib().dt_banded_chase(
+            trace.data_ptr(), rights.data_ptr(), best_event.data_ptr(),
+            n_kmers.data_ptr(), S, Sp, B, W, out.data_ptr(),
+            cuda_lib.stream_handle(dev))
     cuda_lib.check(err, "backtrace_moves")
     CHASE_LAUNCHES.add()
     return out

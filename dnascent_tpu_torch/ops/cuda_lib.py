@@ -142,6 +142,16 @@ def stream_handle(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def on_device(device):
+    """The context a wrapper launches its kernel in: the CUDA runtime
+    launches (and sets kernel attributes) on the calling thread's current
+    device, which need not be the tensors' device (a pipeline worker
+    thread starts on cuda:0), so the launch runs with ``device`` made
+    current."""
+    import torch
+    return torch.cuda.device(device)
+
+
 def use_kernel(device) -> bool:
     """True for a CUDA tensor (launch the kernel), False for a CPU tensor
     (the plain twin); any other device raises."""

@@ -94,6 +94,22 @@ def _cell(gx: torch.Tensor, gh: torch.Tensor, h: torch.Tensor):
     return z * h + (1.0 - z) * hh
 
 
+def _product(h: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """``h @ m`` for (N, 16) x (16, 48).  On the CPU as 16 rounded
+    multiplies and adds in k order: the CPU's GEMM libraries (MKL, oneDNN)
+    pick their kernels at run time from process state, so their rounding
+    can differ between two runs on the same inputs, and these elementwise
+    ops round the same way in every process.  On a card, cuBLAS in f32 (a
+    fixed kernel for a fixed shape, and ~2000 fewer launches a step when
+    training takes this scan)."""
+    if h.device.type != "cpu":
+        return h @ m
+    acc = h[:, :1] * m[0]
+    for k in range(1, h.shape[1]):
+        acc = acc + h[:, k : k + 1] * m[k]
+    return acc
+
+
 def gru_scan_plain(x: torch.Tensor, live: torch.Tensor,
                    w: torch.Tensor) -> torch.Tensor:
     """The two cells over the sample axis: ``x`` (N, T) f32 samples,
@@ -106,8 +122,9 @@ def gru_scan_plain(x: torch.Tensor, live: torch.Tensor,
     for t in range(x.shape[1]):
         # a (N, 1) x (1, 48) product is one rounded multiply per element
         n0 = _cell(x[:, t : t + 1] * p["k0"] + p["b0x"],
-                   h0 @ p["U0"] + p["b0h"], h0)
-        n1 = _cell(n0 @ p["W1"] + p["b1x"], h1 @ p["U1"] + p["b1h"], h1)
+                   _product(h0, p["U0"]) + p["b0h"], h0)
+        n1 = _cell(_product(n0, p["W1"]) + p["b1x"],
+                   _product(h1, p["U1"]) + p["b1h"], h1)
         m = live[:, t : t + 1]
         h0 = torch.where(m, n0, h0)
         h1 = torch.where(m, n1, h1)

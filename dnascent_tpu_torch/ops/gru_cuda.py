@@ -32,9 +32,10 @@ def gru_encoder(xq: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if N == 0 or T == 0:
         return torch.zeros((N, GRU_UNITS), dtype=torch.float32, device=dev)
     out = torch.empty((N, GRU_UNITS), dtype=torch.float32, device=dev)
-    err = cuda_lib.lib().dt_gru_encoder(
-        xq.data_ptr(), w.data_ptr(), N, T, SIG_QUANT_SCALE, SIG_QUANT_LO,
-        out.data_ptr(), cuda_lib.stream_handle(dev))
+    with cuda_lib.on_device(dev):
+        err = cuda_lib.lib().dt_gru_encoder(
+            xq.data_ptr(), w.data_ptr(), N, T, SIG_QUANT_SCALE, SIG_QUANT_LO,
+            out.data_ptr(), cuda_lib.stream_handle(dev))
     cuda_lib.check(err, "gru_encoder")
     LAUNCHES.add()
     return out

@@ -58,13 +58,14 @@ def viterbi_fill_codes(obs_T, mu, inv_sigma, lp_const, n_obs, n_states,
     Wc = -(-W // CODES_ALIGN) * CODES_ALIGN
     codes = torch.empty((T, N, Wc), dtype=torch.uint8, device=dev)
     finals = torch.empty((3, N, W), dtype=f32, device=dev)
-    err = cuda_lib.lib().dt_viterbi_fill(
-        obs_T.data_ptr(), mu.data_ptr(), inv_sigma.data_ptr(),
-        lp_const.data_ptr(), n_obs.data_ptr(), n_states.data_ptr(),
-        iM2M.data_ptr(), eM2M.data_ptr(), eOrIM2M.data_ptr(), T, N, W, Wc,
-        *[float(v) for v in hmm_logs], codes.data_ptr(),
-        finals[0].data_ptr(), finals[1].data_ptr(), finals[2].data_ptr(),
-        cuda_lib.stream_handle(dev))
+    with cuda_lib.on_device(dev):
+        err = cuda_lib.lib().dt_viterbi_fill(
+            obs_T.data_ptr(), mu.data_ptr(), inv_sigma.data_ptr(),
+            lp_const.data_ptr(), n_obs.data_ptr(), n_states.data_ptr(),
+            iM2M.data_ptr(), eM2M.data_ptr(), eOrIM2M.data_ptr(), T, N, W, Wc,
+            *[float(v) for v in hmm_logs], codes.data_ptr(),
+            finals[0].data_ptr(), finals[1].data_ptr(), finals[2].data_ptr(),
+            cuda_lib.stream_handle(dev))
     cuda_lib.check(err, "viterbi_fill_codes")
     FILL_LAUNCHES.add()
     return codes[:, :, :W], finals[0], finals[1], finals[2]
@@ -116,11 +117,13 @@ def viterbi_terminate_backtrace(codes, I_fin, M_fin, D_fin, n_obs, n_states,
     s_pad = -(-s_rows // 8) * 8
     path = torch.empty((W, s_pad), dtype=torch.uint8, device=dev)
     path_len = torch.empty(W, dtype=i32, device=dev)
-    err = cuda_lib.lib().dt_viterbi_terminate_backtrace(
-        codes.data_ptr(), I_fin.data_ptr(), M_fin.data_ptr(),
-        D_fin.data_ptr(), n_obs.data_ptr(), n_states.data_ptr(),
-        eM2MorD.data_ptr(), float(eI2M), T, N, W, Wc, s_pad, path.data_ptr(),
-        path_len.data_ptr(), cuda_lib.stream_handle(dev))
+    with cuda_lib.on_device(dev):
+        err = cuda_lib.lib().dt_viterbi_terminate_backtrace(
+            codes.data_ptr(), I_fin.data_ptr(), M_fin.data_ptr(),
+            D_fin.data_ptr(), n_obs.data_ptr(), n_states.data_ptr(),
+            eM2MorD.data_ptr(), float(eI2M), T, N, W, Wc, s_pad,
+            path.data_ptr(), path_len.data_ptr(),
+            cuda_lib.stream_handle(dev))
     cuda_lib.check(err, "viterbi_terminate_backtrace")
     BACKTRACE_LAUNCHES.add()
     return path, path_len

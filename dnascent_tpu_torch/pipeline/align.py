@@ -21,6 +21,7 @@ import numpy as np
 from .. import device as devmod
 from ..config import DNA_R10, SubstrateConfig
 from ..io.poremodel import PoreModelSet
+from ..parallel.compute import DeviceLike, as_devices, per_device
 from .detect import DetectStats, run_batches
 from .eventalign import run_eventalign
 from .prep import prepare_reads
@@ -28,22 +29,24 @@ from .source import ReadRecord
 
 
 def align_reads(records: Iterable[ReadRecord], models: PoreModelSet,
-                cfg: SubstrateConfig = DNA_R10, device="cuda",
+                cfg: SubstrateConfig = DNA_R10, device: DeviceLike = "cuda",
                 strict: bool = True, batch_size: int = 32,
                 stats: Optional[DetectStats] = None,
                 pipeline_depth: int = 4):
     """Generator of (read_id, eventalign text or None for a read that failed
-    QC) over ``records``, in order, run on ``device`` in batches of
-    ``batch_size`` reads, ``pipeline_depth`` batches in flight.  ``strict``
-    (align's default) keeps the reference's window coupling; without it
-    windows advance by their full span (``--fast-windows``)."""
-    dev = devmod.resolve(device)
-    model_table = devmod.put_rep(models.pore_model.astype(np.float32), dev)
+    QC) over ``records``, in order, run on ``device`` (one device or a
+    device set) in batches of ``batch_size`` reads, ``pipeline_depth``
+    batches a device in flight.  ``strict`` (align's default) keeps the
+    reference's window coupling; without it windows advance by their full
+    span (``--fast-windows``)."""
+    devices = as_devices(device)
+    tables = per_device(devices, lambda d: devmod.put_rep(
+        models.pore_model.astype(np.float32), d))
 
-    def process(batch):
+    def process(batch, dev):
         prepped = prepare_reads(batch, models, cfg, device=dev)
         results = run_eventalign(prepped, models, cfg, collect_text=True,
-                                 strict=strict, model_table=model_table)
+                                 strict=strict, model_table=tables[dev])
         out = []
         for p in prepped:
             res = results.get(p.record.read_id)
@@ -52,7 +55,7 @@ def align_reads(records: Iterable[ReadRecord], models: PoreModelSet,
         return out
 
     for batch_out in run_batches(records, process, batch_size,
-                                 pipeline_depth):
+                                 pipeline_depth, devices):
         for rid, text in batch_out:
             if stats is not None:
                 stats.processed += 1

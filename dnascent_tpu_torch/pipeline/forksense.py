@@ -34,6 +34,7 @@ from typing import Iterator, Optional, TextIO
 import numpy as np
 
 from ..config import ForkSenseParams, SubstrateConfig, DNA_R10
+from ..parallel.collectives import gather_ordered, window_keys
 
 
 @dataclass
@@ -713,21 +714,34 @@ def process_read(r: DetectedReadData, inc: KMeansResult, analogue_order: str,
 
 
 def forksense_run(reads: Iterator[DetectedReadData], analogue_order: str,
-                  cfg: SubstrateConfig = DNA_R10, progress_cb=None, **kwargs):
+                  cfg: SubstrateConfig = DNA_R10, read_ordinals=None,
+                  progress_cb=None, **kwargs):
     """Two-pass run (sense_main, forkSense.cpp:1765-1787).  ``reads`` must
     be re-iterable (pass a list or a factory upstream for streams).  Pass 1
-    pools every read's call-fraction windows, in read order, into one
+    pools every read's call-fraction windows in global read order into one
     whole-dataset 2-means (forkSense.cpp:1459-1615); pass 2 calls each
-    read."""
+    read.
+
+    Multi-process: callers shard the read list and pass each read's global
+    ordinal in ``read_ordinals``; pass 1's call-fraction vectors are then
+    gathered over the processes in global window order
+    (``parallel/collectives.gather_ordered``), so every process runs the
+    single-process 2-means, and pass 2 runs on the local shard only."""
     fs = cfg.forksense
     reads = list(reads)
-    bfr_all, efr_all = [], []
+    if read_ordinals is None:
+        read_ordinals = range(len(reads))
+    bfr_all, efr_all, counts = [], [], []
     for r in reads:
         bfr, efr = call_fractions_read(r.coords, r.edu, r.brdu, fs)
         bfr_all.append(bfr)
         efr_all.append(efr)
-    bfr = np.concatenate(bfr_all) if bfr_all else np.empty(0)
-    efr = np.concatenate(efr_all) if efr_all else np.empty(0)
+        counts.append(bfr.shape[0])
+    keys = window_keys(read_ordinals, counts)
+    bfr = gather_ordered(
+        np.concatenate(bfr_all) if bfr_all else np.empty(0), keys)
+    efr = gather_ordered(
+        np.concatenate(efr_all) if efr_all else np.empty(0), keys)
     if bfr.shape[0] < fs.min_call_fraction_windows:
         raise ValueError(
             "insufficient call-fraction windows for forkSense "

@@ -19,6 +19,7 @@ from .. import device as devmod
 from ..config import DNA_R10, SubstrateConfig
 from ..io.poremodel import PoreModelSet
 from ..ops.hmm import forward_batch
+from ..parallel.compute import DeviceLike, as_devices
 from ..utils.seqtools import encode_bases, reverse_complement
 from .detect import DetectStats, run_batches
 from .eventalign import HMM_KEY
@@ -64,22 +65,23 @@ def _bucket_up(n: int, step: int) -> int:
 
 
 def hmm_detect_reads(records: Iterable[ReadRecord], models: PoreModelSet,
-                     cfg: SubstrateConfig = DNA_R10, device="cuda",
+                     cfg: SubstrateConfig = DNA_R10,
+                     device: DeviceLike = "cuda",
                      stats: Optional[DetectStats] = None,
                      batch_size: int = 32):
     """Generator of (read_id, the read's ``.detect`` text block, or None
     for a read that failed QC) over ``records``, in order, run on
-    ``device`` in batches of ``batch_size`` reads, PIPELINE_DEPTH batches
-    in flight.  A passing read with no scorable window gives its header
-    alone."""
-    dev = devmod.resolve(device)
+    ``device`` (one device or a device set) in batches of ``batch_size``
+    reads, PIPELINE_DEPTH batches a device in flight.  A passing read with
+    no scorable window gives its header alone."""
+    devices = as_devices(device)
     hmm_probs = tuple(getattr(cfg.hmm, kk) for kk in HMM_KEY)
     window = cfg.detect.hmm_window
     k = cfg.kmer_len
     n_states = 2 * window
     brdu_lo, brdu_hi = window - k // 2, window + k // 2   # detect.cpp:544
 
-    def flush(batch):
+    def flush(batch, dev):
         prepped = prepare_reads(batch, models, cfg, device=dev)
         jobs = []          # (p, windows) of the scorable reads
         results = {}       # read id -> text or None
@@ -167,7 +169,7 @@ def hmm_detect_reads(records: Iterable[ReadRecord], models: PoreModelSet,
     # stats are counted here, on the consumer side: the worker threads
     # must not race the counters
     for batch_out in run_batches(records, flush, batch_size,
-                                 PIPELINE_DEPTH):
+                                 PIPELINE_DEPTH, devices):
         for rid, text in batch_out:
             if stats is not None:
                 stats.processed += 1

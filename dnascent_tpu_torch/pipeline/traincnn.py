@@ -149,23 +149,28 @@ def save_model(model: DetectModel, path: str) -> None:
         cnn_mod.save_params(model, path)
 
 
-def make_train_step(model: DetectModel, optimizer):
-    """One step on a batch (a dict of ``TrainBatch``'s arrays on the model's
-    device: core, residual, signal, labels, mask): the mean negative
-    log-probability of the label over the masked positions (probabilities
-    clipped to [1e-9, 1]), its gradient, the optimizer's update.  Returns
-    the loss (a 0-dim tensor on the model's device)."""
-    def loss_fn(batch):
-        probs = model(batch["core"], batch["residual"], batch["signal"])
-        logp = torch.log(torch.clamp(probs, 1e-9, 1.0))
-        labels = torch.clamp(batch["labels"], 0, 2).long()
-        nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
-        mask = batch["mask"].float()
-        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+def masked_nll(model: DetectModel, batch: dict):
+    """(the sum of the negative log-probabilities of the labels over the
+    masked positions, probabilities clipped to [1e-9, 1]; the mask count)
+    of a batch (a dict of ``TrainBatch``'s arrays on the model's device:
+    core, residual, signal, labels, mask)."""
+    probs = model(batch["core"], batch["residual"], batch["signal"])
+    logp = torch.log(torch.clamp(probs, 1e-9, 1.0))
+    labels = torch.clamp(batch["labels"], 0, 2).long()
+    nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+    mask = batch["mask"].float()
+    return (nll * mask).sum(), mask.sum()
 
+
+def make_train_step(model: DetectModel, optimizer):
+    """One step on a batch (as :func:`masked_nll` takes it): the mean
+    negative log-probability of the label over the masked positions, its
+    gradient, the optimizer's update.  Returns the loss (a 0-dim tensor on
+    the model's device)."""
     def step(batch):
         optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(batch)
+        total, count = masked_nll(model, batch)
+        loss = total / torch.clamp(count, min=1.0)
         loss.backward()
         optimizer.step()
         return loss.detach()

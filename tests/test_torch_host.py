@@ -4,11 +4,12 @@ The port carries copies of the host modules it needs (config, sequence
 tools, pore models, read sources and their signal readers, the index
 reader and writer, the FASTA reader, the BAM and modbam writers and
 readers, the native library, quantile scaling, the SavedModel reader and
-writer, the window ordering of forkSense, the synthetic fork reads), so
-that it imports nothing of ``dnascent_tpu``.  Each copy must
-give what the original gives on the same inputs: the golden dataset
-(``build_dataset(..., n_reads=4, read_length=1500, signal_format="fast5",
-seed=11)``) and seeded numpy data.  Equality is exact throughout.
+writer, the window ordering of forkSense, the synthetic fork reads, the
+merge of shard outputs), so that it imports nothing of ``dnascent_tpu``.
+Each copy must give what the original gives on the same inputs: the golden
+dataset (``build_dataset(..., n_reads=4, read_length=1500,
+signal_format="fast5", seed=11)``) and seeded numpy data.  Equality is
+exact throughout.
 """
 
 import dataclasses
@@ -560,3 +561,48 @@ def test_parse_align_events_and_dbscan_equal(tmp_path):
             assert 0 < keep.sum() < ev.shape[0] or min_points == 40
             np.testing.assert_array_equal(
                 t.dbscan_filter_1d(ev, eps, min_points), keep)
+
+
+def _write_shards(tmp_path, rng):
+    """Three detect-style shard files and three bed shards of seeded reads
+    on two contigs (ties in start and end broken by the read id), each
+    with a header; the third bed shard is empty but for its header."""
+    texts, beds = ["", "", ""], ["#h0\n", "#h1\n", "#h2\n"]
+    for i in range(30):
+        contig = f"chr{rng.integers(1, 3)}"
+        start = int(rng.integers(0, 4)) * 100
+        end = start + int(rng.integers(1, 3)) * 50
+        k = int(rng.integers(0, 3))
+        texts[k] += f">r{i:02d} {contig} {start} {end} fwd\n"
+        texts[k] += "".join(f"{start + j}\t0.{j}\t0.5\n"
+                            for j in range(int(rng.integers(0, 4))))
+        if k < 2:
+            beds[k] += f"{contig} {start} {end} r{i:02d} {start} {end} fwd\n"
+    paths = []
+    for k in range(3):
+        paths.append(tmp_path / f"out.detect.host{k}")
+        paths[-1].write_text(f"#Header {k}\n#Mode CNN\n" + texts[k])
+        (tmp_path / f"x.bed.host{k}").write_text(beds[k])
+    return ([str(p) for p in paths],
+            [str(tmp_path / f"x.bed.host{k}") for k in range(3)])
+
+
+def test_merge_host_outputs_equal(tmp_path):
+    """``parallel/merge.py``: the port's merge of shard outputs and of bed
+    shards writes the JAX package's bytes, and the shard-path helpers
+    agree."""
+    from dnascent_tpu.parallel import merge as jm
+    from dnascent_tpu_torch.parallel import merge as tm
+
+    detect, beds = _write_shards(tmp_path, np.random.default_rng(9))
+    for fn, shards in (("merge_host_outputs", detect),
+                       ("merge_bed_outputs", beds)):
+        got, want = tmp_path / f"{fn}.port", tmp_path / f"{fn}.jax"
+        n = getattr(tm, fn)(shards, str(got))
+        assert n == getattr(jm, fn)(shards, str(want)) and n > 10
+        assert got.read_bytes() == want.read_bytes(), fn
+    out = str(tmp_path / "out.detect")
+    assert tm.host_shard_path(out, 2) == jm.host_shard_path(out, 2)
+    for n in (3, 4):
+        assert (tm.all_shards_present(out, n)
+                == jm.all_shards_present(out, n) == (n == 3))

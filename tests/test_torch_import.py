@@ -1,7 +1,7 @@
 """PyTorch port: it imports and runs without jax and without the JAX
-package ``dnascent_tpu``, and its CLI refuses what is not ported rather
-than ignoring it (only the multi-device and multi-process flags are left),
-while it ignores ``--HMM`` on align and trainCNN, as the JAX CLI does."""
+package ``dnascent_tpu``, and its CLI takes every flag of the JAX CLI (the
+multi-device and multi-process ones included), while it ignores ``--HMM``
+on align and trainCNN, as the JAX CLI does."""
 
 import os
 import re
@@ -46,6 +46,7 @@ from dnascent_tpu_torch.testing import forks
 from dnascent_tpu_torch.tools import bedgraph
 from dnascent_tpu_torch.models import cnn, reference_cnn
 from dnascent_tpu_torch.ops import banded_cuda, gru_cuda, hmm, viterbi_cuda
+from dnascent_tpu_torch.parallel import collectives, compute, merge, mesh
 rng = np.random.default_rng(0)
 ev = torch.from_numpy(rng.normal(0, 1, (2, 60)).astype(np.float32))
 mu = torch.from_numpy(rng.normal(0, 1, (2, 40)).astype(np.float32))
@@ -120,31 +121,62 @@ def test_no_source_file_imports_the_jax_package():
             assert not pat.search(fh.read()), path
 
 
-def test_cli_refuses_unported_features(tmp_path, capsys):
+_BASE = ["-b", "x.bam", "-r", "x.fa", "-i", "x.idx"]
+_SEE_BREAKS = ["seeBreaks", "-r", "r.bed", "-a", "a.bed", "-d", "x.detect",
+               "-o", "o.seeBreaks"]
+
+
+# each argv the port refused as "Not ported" before the multi-device and
+# multi-process flags were ported, with the input error it now reaches
+# after argument handling (an exception, or exit code 1 and a message; the
+# --coordinator case refuses before it contacts the coordinator), then the
+# two refusals that stay: an unknown output extension and a missing
+# SavedModel directory (--model is ported; its check comes before any
+# input is read)
+@pytest.mark.parametrize("argv, error", [
+    (["detect", *_BASE, "-o", "o.bam", "--nprocs", "2"],
+     "human-readable .detect output only"),
+    (["trainCNN", *_BASE, "-o", "o.trainCNN", "--fit", "fit.npz",
+      "--fit-label", "BrdU", "--procid", "1", "--device", "cpu"],
+     "No trained CNN weights"),
+    (["forkSense", "-d", "x.detect", "-o", "o.fs", "--order", "EdU,BrdU",
+      "--nprocs", "2"], FileNotFoundError),
+    ([*_SEE_BREAKS, "--nprocs", "2"], FileNotFoundError),
+    ([*_SEE_BREAKS, "--fast", "--coordinator", "localhost:1"],
+     "--coordinator needs --procid"),
+    (["align", *_BASE, "-o", "o.align", "--nprocs", "2", "--device", "cpu"],
+     FileNotFoundError),
+    (["align", *_BASE, "-o", "o.align", "--devices", "2", "--device", "cpu"],
+     FileNotFoundError),
+    (["detect", *_BASE, "-o", "o.txt"], "Invalid output extension"),
+    (["detect", *_BASE, "-o", "o.detect", "--device", "cpu", "--model",
+      "no_such_model"], "not found"),
+], ids=["detect_bam_nprocs", "traincnn_procid", "forksense_nprocs",
+        "seebreaks_nprocs", "seebreaks_coordinator", "align_nprocs",
+        "align_devices", "bad_extension", "missing_model"])
+def test_cli_refuses_unported_features(argv, error, tmp_path, capsys,
+                                       monkeypatch):
+    """Nothing is left unported: the multi-device and multi-process flags
+    pass argument handling on every subcommand that has them, so each argv
+    that was refused as "Not ported" ends in its input error instead; the
+    input refusals that remain still refuse.  Nothing is written."""
     from dnascent_tpu_torch import cli
-    base = ["detect", "-b", "x.bam", "-r", "x.fa", "-i", "x.idx"]
-    fork_sense = ["forkSense", "-d", "x.detect", "-o", str(tmp_path / "o.fs"),
-                  "--order", "EdU,BrdU"]
-    see_breaks = ["seeBreaks", "-r", "r.bed", "-a", "a.bed", "-d", "x.detect",
-                  "-o", str(tmp_path / "o.seeBreaks")]
-    align = ["align", *base[1:], "-o", str(tmp_path / "o.align")]
-    for argv in (base + ["-o", str(tmp_path / "o.bam"), "--nprocs", "2"],
-                 ["trainCNN", *base[1:], "-o", str(tmp_path / "o.trainCNN"),
-                  "--fit", str(tmp_path / "fit.npz"), "--fit-label", "BrdU",
-                  "--procid", "1"],
-                 fork_sense + ["--nprocs", "2"],
-                 see_breaks + ["--nprocs", "2"],
-                 see_breaks + ["--fast", "--coordinator", "h:1"],
-                 align + ["--nprocs", "2"], align + ["--devices", "2"]):
-        assert cli.main(argv) == 1
-        assert "Not ported" in capsys.readouterr().err
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.delenv("RANK", raising=False)
+    if isinstance(error, str):
+        try:
+            rc = cli.main(argv)
+        except SystemExit as e:
+            msg = str(e)
+        else:
+            assert rc == 1
+            msg = capsys.readouterr().err
+        assert error in msg
+    else:
+        with pytest.raises(error):
+            cli.main(argv)
+    assert "Not ported" not in capsys.readouterr().err
     assert not list(tmp_path.iterdir())
-    assert cli.main(["detect", *base[1:], "-o", "o.txt"]) == 1
-    # --model is ported: a missing SavedModel directory is an input error,
-    # raised before any input is read
-    with pytest.raises(SystemExit, match="not found"):
-        cli.main(base + ["-o", str(tmp_path / "o.detect"), "--device", "cpu",
-                         "--model", str(tmp_path / "no_such_model")])
 
 
 def test_cli_detect_runs_with_untrained_weights(tmp_path, models):
