@@ -102,7 +102,22 @@ Phases, one line each:
      DetectCNN replicas on cuda:0 against one, one step at 8 x 1024
      positions: the loss gap and the largest parameter gap; (e)
      ``sequence_sharded_apply`` with two shards along 8 x 4096 positions
-     against the unsharded forward: the largest gap.
+     against the unsharded forward: the largest gap;
+ 10. stage telemetry, the CPU baseline and the writers: (a) phase 3's 64
+     reads through ``detect_reads`` on CUDA with a ``StageTimer``: the
+     three stage totals and call counts, the ``.detect`` body byte-equal
+     to phase 3's (SHA-256) and the launches phase 3's (A 2, B 2, C 6, D
+     6, E and F none); (b) ``native.baseline_detect_read``, the scalar C++
+     detect hot path, on 8 of those reads pinned to one core: seconds and
+     checksum a read (NaN a QC failure), the host's CPU model and cores,
+     and how many reads' QC outcome agrees with (a)'s (printed, not gated:
+     the baseline windows its Viterbi as ``bench.py`` does); (c) the
+     port's FASTA, BAM and pore-model writers read back through its
+     readers; where pyarrow with zstandard (pod5) or h5py (fast5) is
+     present, ``testing.dataset.build_dataset``'s files through
+     ``cli.main(["detect", ...])`` with ``--device cuda`` and ``cpu``:
+     the same reads and positions, probabilities within phase 2's
+     tolerance; a missing library is printed on a line of its own.
 Each path's launch counts are set to 0 just before it and read just after.
 The shapes of phases 3-5 (each path's C launches and F's live-step
 histogram, recorded by observers around the wrappers) show whether phase
@@ -1760,6 +1775,234 @@ def phase9e(torch, np, model, dev):
                 max_gap=gap, tol=PROB_ATOL_CPU)
 
 
+def phase10a(torch, np, models, model, dev, counters, records, p3):
+    """10a: phase 3's reads through ``detect_reads`` on CUDA with a
+    ``StageTimer``: its three stage totals and call counts; the ``.detect``
+    body byte-equal to phase 3's (run without the timer) and the launches
+    phase 3's.  Returns the result and the ids of the reads that passed."""
+    from dnascent_tpu_torch.config import DNA_R10
+    from dnascent_tpu_torch.io.writers import DetectHRWriter, detect_header
+    from dnascent_tpu_torch.pipeline.detect import detect_reads
+    from dnascent_tpu_torch.utils.progress import StageTimer
+
+    timer = StageTimer()
+    passed = set()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "phase10a.detect")
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.reset()
+        t0 = time.perf_counter()
+        with DetectHRWriter(path) as w:
+            w.write_header(detect_header("simulated", "simulated", "none", 1,
+                                         20, 1000, compute="GPU"))
+            for rid, d in detect_reads(iter(records), models, model, DNA_R10,
+                                       device=dev, batch_size=32,
+                                       collect_failures=True, timer=timer):
+                if d is not None:
+                    w.write(d)
+                    passed.add(rid)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: c.count for k, c in counters.items()}
+        n, body = detect_body(path)
+    if body != p3["body_sha256"] or n != p3["passed"]:
+        fail("10a: the .detect body with the stage timer differs from "
+             "phase 3's")
+    want = dict(banded_fill=2, banded_chase=2, viterbi_fill=6,
+                viterbi_backtrace=6, banded_fill_general=0, gru_encoder=0)
+    if launches != p3["launches"] or launches != want:
+        fail(f"10a launches {launches}, phase 3 {p3['launches']}, "
+             f"expected {want}")
+    stages = {name: dict(total_s=timer.totals[name],
+                         calls=timer.counts[name])
+              for name in ("prep(events+scaling+banded)",
+                           "eventalign(viterbi)", "cnn_forward")}
+    if any(v["calls"] != 2 for v in stages.values()):
+        fail(f"10a: each stage should run once a batch: {stages}")
+    return dict(reads=len(records), passed=n, wall_s=wall,
+                reads_per_s=len(records) / wall, stages=stages,
+                stage_sum_s=sum(v["total_s"] for v in stages.values()),
+                launches=launches, body_sha256=body,
+                byte_equal_to_phase3=True), passed
+
+
+def cpu_model() -> str:
+    """The host CPU's model name from /proc/cpuinfo, else its vendor and
+    family fields there, else the machine type."""
+    import platform
+    fields = {}
+    with open("/proc/cpuinfo") as fh:
+        for line in fh:
+            key, _, value = line.partition(":")
+            fields.setdefault(key.strip(), value.strip())
+    if fields.get("model name"):
+        return fields["model name"]
+    parts = [f"{k} {fields[k]}" for k in ("vendor_id", "cpu family",
+                                           "model", "CPU implementer",
+                                           "CPU part") if fields.get(k)]
+    return ", ".join(parts) or platform.machine()
+
+
+def phase10b(np, models, records, passed):
+    """10b: ``native.baseline_detect_read`` (the scalar C++ detect hot path)
+    on 8 of 10a's reads, pinned to one core: seconds and checksum a read
+    (NaN is a QC failure) and how many reads' QC outcome agrees with the
+    port's in 10a.  The baseline windows its Viterbi as ``bench.py`` does,
+    not as detect does, so the agreement is printed, not gated."""
+    from dnascent_tpu_torch import native
+    from dnascent_tpu_torch.config import DNA_R10
+    from dnascent_tpu_torch.utils.seqtools import kmer_ranks
+
+    cfg = DNA_R10
+    table = models.pore_model.astype(np.float64)
+    old = os.sched_getaffinity(0)
+    core = min(old)
+    seconds, checksums, agree = [], [], 0
+    os.sched_setaffinity(0, {core})
+    try:
+        for rec in records[:8]:
+            rq = kmer_ranks(rec.basecall, cfg.kmer_len)
+            rr = kmer_ranks(rec.reference_seq, cfg.kmer_len)
+            q2r = np.full(rq.shape[0], -1, np.int64)
+            m = min(rec.query_to_ref.shape[0], rq.shape[0])
+            q2r[:m] = rec.query_to_ref[:m]
+            t0 = time.perf_counter()
+            cs = native.baseline_detect_read(rec.raw, rq, rr, q2r, table,
+                                             cfg)
+            seconds.append(time.perf_counter() - t0)
+            checksums.append(cs)
+            agree += bool(np.isfinite(cs)) == (rec.read_id in passed)
+    finally:
+        os.sched_setaffinity(0, old)
+    if not any(np.isfinite(c) for c in checksums):
+        fail("10b: the CPU baseline failed QC on every read")
+    return dict(reads=len(seconds), read_length=10000, pinned_core=core,
+                cpu_model=cpu_model(), host_cores=os.cpu_count(),
+                s_per_read=seconds, mean_s_per_read=float(np.mean(seconds)),
+                checksums=[c if np.isfinite(c) else "NaN"
+                           for c in checksums],
+                qc_agrees_with_port=agree)
+
+
+def detect_rows(path):
+    """(read headers, [(coord, k-mer)], (n, 2) probabilities) of a
+    ``.detect`` file's body."""
+    import numpy as np
+    heads, keys, probs = [], [], []
+    with open(path) as fh:
+        for line in fh:
+            if line.startswith("#"):
+                continue
+            if line.startswith(">"):
+                heads.append(line)
+                continue
+            cols = line.rstrip("\n").split("\t")
+            keys.append((cols[0], cols[3]))
+            probs.append((float(cols[1]), float(cols[2])))
+    return heads, keys, np.asarray(probs).reshape(-1, 2)
+
+
+def phase10c(np, models, tmp):
+    """10c: the port's FASTA, BAM and pore-model writers on this host, read
+    back through the port's readers; then, where pyarrow with zstandard
+    (pod5) or h5py (fast5) is present, the whole dataset of
+    ``testing.dataset.build_dataset`` and ``cli.main(["detect", ...])`` on
+    it with ``--device cuda`` and ``--device cpu``: the same reads,
+    coordinates and k-mers, probabilities within phase 2's tolerance.  A
+    missing library is printed on a line of its own."""
+    import importlib.util
+
+    from dnascent_tpu_torch import cli
+    from dnascent_tpu_torch.config import DNA_R10
+    from dnascent_tpu_torch.io import bam as bam_io
+    from dnascent_tpu_torch.io.fasta import import_reference, write_fasta
+    from dnascent_tpu_torch.io.poremodel import (import_pore_model_fit_stdv,
+                                                 write_model_tsv)
+    from dnascent_tpu_torch.testing.dataset import build_dataset
+    from dnascent_tpu_torch.testing.simulate import random_sequence
+
+    rng = np.random.default_rng(SEED + 1000)
+    ref = {f"chr{i}": random_sequence(rng, n)
+           for i, n in enumerate((50000, 81, 1))}
+    fa = os.path.join(tmp, "w.fa")
+    write_fasta(ref, fa)
+    if import_reference(fa) != ref:
+        fail("10c: FASTA read back differs")
+    names, lengths = list(ref), [len(v) for v in ref.values()]
+    header = "@HD\tVN:1.6\tSO:unknown\n" + "".join(
+        f"@SQ\tSN:{k}\tLN:{n}\n" for k, n in zip(names, lengths))
+    written = []
+    for i in range(200):
+        start = int(rng.integers(0, 40000))
+        n = int(rng.integers(100, 9000))
+        written.append(bam_io.build_record(
+            f"read{i}", 0, start, 60, [(bam_io.BAM_CMATCH, n)],
+            ref["chr0"][start : start + n],
+            flag=bam_io.FLAG_REVERSE if i % 2 else 0))
+    bam_path = os.path.join(tmp, "w.bam")
+    w = bam_io.BamWriter(bam_path, header, names, lengths)
+    for r in written:
+        w.write_record(r)
+    w.close()
+    rd = bam_io.BamReader(bam_path)
+    back = list(rd)
+    rd.close()
+    if (rd.header_text != header or rd.ref_names != names
+            or rd.ref_lengths != lengths
+            or [r.raw for r in back] != [r.raw for r in written]):
+        fail("10c: BAM read back differs")
+    tsv = os.path.join(tmp, "w.model")
+    write_model_tsv(models.unlabelled_model, tsv, DNA_R10.kmer_len)
+    table = import_pore_model_fit_stdv(tsv, DNA_R10.kmer_len)
+    # the writer prints six decimals; the reader parses them into f32
+    want = np.array([float(f"{v:.6f}") for v in
+                     models.unlabelled_model.ravel()],
+                    np.float32).reshape(table.shape)
+    if not np.array_equal(table, want):
+        fail("10c: pore-model TSV read back differs")
+    out = dict(fasta_contigs=len(ref), bam_records=len(back),
+               bam_bytes=os.path.getsize(bam_path), model_rows=len(table),
+               model_max_abs_err=float(
+                   np.abs(table - models.unlabelled_model).max()))
+
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ("pyarrow", "zstandard", "h5py")}
+    out["libraries"] = have
+    formats = []
+    if have["pyarrow"] and have["zstandard"]:
+        formats.append("pod5")
+    if have["h5py"]:
+        formats.append("fast5")
+    for m, ok in have.items():
+        if not ok:
+            print(m, flush=True)
+    for fmt in formats:
+        ds = build_dataset(os.path.join(tmp, fmt), models, n_reads=4,
+                           read_length=2000, signal_format=fmt,
+                           seed=SEED + 200)
+        runs = []
+        for device in ("cuda", "cpu"):
+            path = os.path.join(tmp, f"{fmt}_{device}.detect")
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = cli.main(["detect", "-b", ds.bam, "-r", ds.reference_fa,
+                               "-i", ds.index, "-o", path, "--device",
+                               device, "--allow-untrained-cnn"])
+            if rc != 0:
+                fail(f"10c: detect --device {device} on {fmt} gave {rc}")
+            runs.append(detect_rows(path))
+        (hg, kg, pg), (hc, kc, pc) = runs
+        if hg != hc or kg != kc or not kg:
+            fail(f"10c: {fmt} detect on CUDA and CPU: reads or positions "
+                 "differ")
+        err = float(np.abs(pg - pc).max())
+        if err > PROB_ATOL_CPU:
+            fail(f"10c: {fmt} CUDA/CPU probabilities differ by {err}")
+        out[fmt] = dict(reads=len(hg), rows=len(kg), max_prob_diff=err,
+                        tol=PROB_ATOL_CPU)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1877,6 +2120,21 @@ def main() -> int:
     print(f"phase 9 multi-device and multi-process runs ({smi}): "
           + json.dumps(p9), flush=True)
 
+    t10 = time.perf_counter()
+    p10 = {}
+    p10["a"], passed10 = phase10a(torch, np, models, model, dev, counters,
+                                  records9, p3)
+    t = time.perf_counter()
+    p10["b"] = phase10b(np, models, records9, passed10)
+    p10["b_wall_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        p10["c"] = phase10c(np, models, tmp)
+    p10["c_wall_s"] = time.perf_counter() - t
+    p10["wall_s"] = time.perf_counter() - t10
+    print(f"phase 10 stage telemetry, CPU baseline and writers ({smi}): "
+          + json.dumps(p10), flush=True)
+
     # (source, TPU kernel, the path whose launch count the table shows)
     meta = {
         "banded_fill": ("dnascent_tpu_torch/csrc/banded_fill.cu",
@@ -1895,7 +2153,7 @@ def main() -> int:
     paths = {"phase3": p3, "phase4": p4, "phase5": p5,
              "phase6": p6["modbam"], "phase7": p7["strict"],
              "phase8_hmm": p8["hmm"], "phase8_fit": p8["fit"]["batches"],
-             "phase9": p9["a"]}
+             "phase9": p9["a"], "phase10": p10["a"]}
     kernels = []
     for name, (src, rep, path) in meta.items():
         row = rows[name]

@@ -15,6 +15,7 @@ from __future__ import annotations
 import dataclasses
 import os
 from dataclasses import dataclass, field
+from typing import Optional
 
 
 @dataclass(frozen=True)
@@ -186,6 +187,10 @@ class SubstrateConfig:
 
 DNA_R10 = SubstrateConfig()
 
+#: registry of available presets; structured to admit other chemistries the
+#: way the reference's Global_Config was (src/config.h comment block).
+PRESETS = {"DNA_R10.4.1": DNA_R10, "dna_r10.4.1": DNA_R10}
+
 
 def default_models_dir() -> str:
     """Directory searched for pore-model TSVs, analogous to the exe-relative
@@ -194,3 +199,12 @@ def default_models_dir() -> str:
     if env:
         return env
     return os.path.join(os.path.dirname(os.path.abspath(__file__)), "pore_models")
+
+
+def get_config(name: Optional[str] = None) -> SubstrateConfig:
+    if name is None:
+        return DNA_R10
+    try:
+        return PRESETS[name]
+    except KeyError:
+        raise KeyError(f"unknown substrate preset '{name}'; available: {sorted(PRESETS)}")

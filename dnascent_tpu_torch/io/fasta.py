@@ -1,7 +1,7 @@
 """FASTA import (reference: src/data_IO.cpp:79-112 via pfasta).
 
 Names are truncated at the first whitespace; sequences are uppercased.  A
-copy of ``dnascent_tpu/io/fasta.py``'s reader."""
+copy of ``dnascent_tpu/io/fasta.py``: the reader and the writer."""
 
 from __future__ import annotations
 
@@ -27,3 +27,11 @@ def import_reference(path: str) -> dict[str, str]:
     if not ref:
         raise ValueError(f"no fasta header found in {path}")
     return ref
+
+
+def write_fasta(ref: dict[str, str], path: str, width: int = 80) -> None:
+    with open(path, "w") as fh:
+        for name, seq in ref.items():
+            fh.write(f">{name}\n")
+            for i in range(0, len(seq), width):
+                fh.write(seq[i : i + width] + "\n")

@@ -12,9 +12,9 @@ Signal rows are VBZ-compressed: zig-zag delta int16 -> svb16 streamvbyte ->
 zstd (nanoporetech/vbz).  The svb16 decode (1 control bit per value -> 1 or 2
 data bytes) is vectorised with numpy.
 
-The reading half of ``dnascent_tpu/io/pod5_io.py``, copied; pyarrow and
+A copy of ``dnascent_tpu/io/pod5_io.py``, reader and writer; pyarrow and
 zstandard are imported guarded, so a host without them can still import the
-port.
+port, and a writer without them raises.
 
 Calibration to pA follows pod5.cpp:57-61: pA = (raw + offset) * scale.
 Dorado split-read slicing (sp/ts/ns tags) happens in the read source, as in
@@ -42,6 +42,7 @@ except Exception:  # pragma: no cover
     HAVE_ZSTD = False
 
 ARROW_MAGIC = b"ARROW1"
+POD5_SIGNATURE = b"\x8bPOD\r\n\x1a\n"
 
 
 # ---------------------------------------------------------------------------
@@ -64,9 +65,29 @@ def svb16_decode(data: bytes, count: int) -> np.ndarray:
     return (lo | (hi << 8)).astype(np.uint16)
 
 
+def svb16_encode(values: np.ndarray) -> bytes:
+    """Inverse of svb16_decode for writing."""
+    v = np.asarray(values, dtype=np.uint16)
+    n = v.shape[0]
+    two = v > 0xFF
+    bits = two.astype(np.uint8)
+    keys = np.packbits(bits, bitorder="little")
+    lengths = bits.astype(np.int64) + 1
+    offsets = np.concatenate([[0], np.cumsum(lengths)[:-1]])
+    payload = np.zeros(int(lengths.sum()), dtype=np.uint8)
+    payload[offsets] = (v & 0xFF).astype(np.uint8)
+    payload[offsets[two] + 1] = (v[two] >> 8).astype(np.uint8)
+    return keys.tobytes() + payload.tobytes()
+
+
 def _zigzag_decode(u: np.ndarray) -> np.ndarray:
     s = u.astype(np.int32)
     return (s >> 1) ^ -(s & 1)
+
+
+def _zigzag_encode(s: np.ndarray) -> np.ndarray:
+    s = s.astype(np.int32)
+    return ((s << 1) ^ (s >> 31)).astype(np.uint16)
 
 
 def vbz_decompress(data: bytes, sample_count: int) -> np.ndarray:
@@ -78,6 +99,15 @@ def vbz_decompress(data: bytes, sample_count: int) -> np.ndarray:
     u = svb16_decode(raw, sample_count)
     deltas = _zigzag_decode(u)
     return np.cumsum(deltas, dtype=np.int64).astype(np.int16)
+
+
+def vbz_compress(samples: np.ndarray) -> bytes:
+    if not HAVE_ZSTD:
+        raise RuntimeError("zstandard unavailable; pod5 support disabled")
+    s = np.asarray(samples, dtype=np.int16).astype(np.int32)
+    deltas = np.diff(s, prepend=0)
+    body = svb16_encode(_zigzag_encode(deltas))
+    return zstandard.ZstdCompressor(level=1).compress(body)
 
 
 # ---------------------------------------------------------------------------
@@ -215,6 +245,75 @@ def pod5_get_signal(path: str, read_id: str, batch: int | None = None,
             chunks.append(vbz_decompress(data, count))
     raw = np.concatenate(chunks) if chunks else np.empty(0, np.int16)
     return (raw.astype(np.float64) + cal_offset) * cal_scale
+
+
+# ---------------------------------------------------------------------------
+# Writer (structure-compatible container for tests/simulation)
+# ---------------------------------------------------------------------------
+
+def write_pod5(path: str, reads: list[tuple[str, np.ndarray]],
+               calibration_offset: float = 0.0,
+               calibration_scale: float = 0.1875,
+               chunk_samples: int = 102400) -> None:
+    """Write a pod5-structured container (signature + embedded Arrow read and
+    signal tables with VBZ-compressed rows).
+
+    Readable by this framework's scanner-based reader; ecosystem tools that
+    require the flatbuffer footer should convert via `pod5` tooling.
+    ``reads``: (read_id, signal_pA).
+    """
+    if not (HAVE_ARROW and HAVE_ZSTD):
+        raise RuntimeError("pyarrow+zstandard required for pod5 writing")
+    sig_read_ids = []
+    sig_bytes = []
+    sig_counts = []
+    read_ids = []
+    read_rows = []
+    offsets = []
+    scales = []
+    row = 0
+    for read_id, pa_signal in reads:
+        raw = np.round(pa_signal / calibration_scale
+                       - calibration_offset).astype(np.int16)
+        rows_for_read = []
+        for s in range(0, raw.shape[0], chunk_samples):
+            chunk = raw[s : s + chunk_samples]
+            sig_read_ids.append(uuid.UUID(read_id).bytes
+                                if _is_uuid(read_id) else
+                                uuid.uuid5(uuid.NAMESPACE_DNS, read_id).bytes)
+            sig_bytes.append(vbz_compress(chunk))
+            sig_counts.append(chunk.shape[0])
+            rows_for_read.append(row)
+            row += 1
+        read_ids.append(sig_read_ids[-1] if rows_for_read else b"\x00" * 16)
+        read_rows.append(rows_for_read)
+        offsets.append(calibration_offset)
+        scales.append(calibration_scale)
+
+    signal_table = pa.table({
+        "read_id": pa.array(sig_read_ids, type=pa.binary(16)),
+        "signal": pa.array(sig_bytes, type=pa.large_binary()),
+        "samples": pa.array(sig_counts, type=pa.uint32()),
+    })
+    read_table = pa.table({
+        "read_id": pa.array(read_ids, type=pa.binary(16)),
+        "signal": pa.array(read_rows, type=pa.list_(pa.uint64())),
+        "read_number": pa.array(range(len(reads)), type=pa.uint32()),
+        "calibration_offset": pa.array(offsets, type=pa.float32()),
+        "calibration_scale": pa.array(scales, type=pa.float32()),
+    })
+
+    def arrow_bytes(table):
+        sink = pa.BufferOutputStream()
+        with pa.ipc.new_file(sink, table.schema) as w:
+            w.write_table(table)
+        return sink.getvalue().to_pybytes()
+
+    with open(path, "wb") as fh:
+        fh.write(POD5_SIGNATURE)
+        fh.write(arrow_bytes(read_table))
+        fh.write(arrow_bytes(signal_table))
+        fh.write(POD5_SIGNATURE)
 
 
 def _is_uuid(s: str) -> bool:

@@ -1,6 +1,6 @@
-"""Pore-model tables: 4^k entries of (mean, stdv) per k-mer (a copy of the
-loaders, trainGMM's table reader and the synthetic tables of
-``dnascent_tpu/io/poremodel.py``).
+"""Pore-model tables: 4^k entries of (mean, stdv) per k-mer (a copy of
+``dnascent_tpu/io/poremodel.py``: the loaders, trainGMM's table reader, the
+synthetic tables and the TSV writer).
 
 Three tables are used at runtime, mirroring the reference's startup loads
 (reference: src/config.h:52-54):
@@ -171,3 +171,16 @@ def load_model_set(cfg: SubstrateConfig, models_dir: str | None = None,
         raise FileNotFoundError(f"missing pore model files: {missing}")
     return synthetic_model_set(cfg)
 
+
+def write_model_tsv(table: np.ndarray, path: str, kmer_len: int, with_stdv: bool = True) -> None:
+    """Write a table back to the reference TSV layout."""
+    from ..utils.seqtools import index2kmer
+
+    with open(path, "w") as fh:
+        fh.write("#kmer\tlevel_mean\tlevel_stdv\n" if with_stdv else "#kmer\tlevel_mean\n")
+        for i in range(table.shape[0]):
+            kmer = index2kmer(i, kmer_len)
+            if with_stdv:
+                fh.write(f"{kmer}\t{table[i,0]:.6f}\t{table[i,1]:.6f}\n")
+            else:
+                fh.write(f"{kmer}\t{table[i,0]:.6f}\n")

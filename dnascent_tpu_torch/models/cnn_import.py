@@ -1,5 +1,5 @@
 """Read reference-trained detect-CNN weights from a TF SavedModel, without
-TensorFlow (a copy of the loader half of ``dnascent_tpu/models/cnn_import.py``).
+TensorFlow (a copy of ``dnascent_tpu/models/cnn_import.py``).
 
 The reference loads ``dnn_models/detect_model_BrdUEdU_DNAr10_4_1`` through the
 TensorFlow C API (src/tensor.cpp:24-105).  This module reads that SavedModel
@@ -8,7 +8,7 @@ against ``reference_cnn_manifest.json`` (the inventory of the shipped
 checkpoint: two GRU(16) cells, the separable-conv trunk at 64/128/256
 channels, the (64, 3) head), and returns the raw tensors keyed
 ``layer<N>/<part>`` or ``trainable<N>``; ``models/reference_cnn.py`` builds
-the module from them.
+the module from them, and ``savedmodel_to_npz`` exports them as a flat npz.
 """
 
 from __future__ import annotations
@@ -72,3 +72,13 @@ def load_savedmodel_tensors(model_dir: str) -> dict[str, np.ndarray]:
             out[f"trainable{int(m.group(1))}"] = arr
     return out
 
+
+def savedmodel_to_npz(model_dir: str, out_path: str) -> int:
+    """Export a reference SavedModel's weights to a flat npz; returns the
+    number of tensors written."""
+    tensors = load_savedmodel_tensors(model_dir)
+    if not tensors:
+        raise ValueError(f"no layer weights found under {model_dir}")
+    np.savez_compressed(out_path,
+                        **{k.replace("/", "."): v for k, v in tensors.items()})
+    return len(tensors)

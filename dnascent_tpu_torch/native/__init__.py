@@ -1,13 +1,15 @@
-"""ctypes loader for the port's host C++ library (``dnascent_native.cpp``).
+"""ctypes loader for the port's host C++ library (``dnascent_native.cpp``
+and ``baseline_cpu.cpp``, one shared object).
 
 A copy of the entries of ``dnascent_tpu/native`` that the port calls: event
 detection, the chase's move decode, the eventalign window chain and window
-post-processing, seeBreaks' libstdc++-exact bootstrap streams and the
+post-processing, seeBreaks' libstdc++-exact bootstrap streams, the
 eventalign table's row formatter (which, unlike the original, refuses
 rather than cuts a row that overflows its buffer, and also writes trainCNN's
-call columns).  The library is built with ``g++`` at first use into
+call columns) and the benchmark-only scalar CPU baseline of the detect hot
+path.  The library is built with ``g++`` at first use into
 ``build/torch_native/`` at the repository root (never into the package), and
-rebuilt when the source is newer than the library.  ``available()`` is False
+rebuilt when either source is newer than the library.  ``available()`` is False
 when it cannot be built or loaded; prep then decodes moves with the numpy
 twin (``ops.banded.decode_moves_host``), while eventalign needs the library.
 """
@@ -22,7 +24,10 @@ import threading
 import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.join(_HERE, "dnascent_native.cpp")
+# baseline_cpu.cpp calls event_detect_single of dnascent_native.cpp, so
+# both build into one library
+_SRCS = [os.path.join(_HERE, "dnascent_native.cpp"),
+         os.path.join(_HERE, "baseline_cpu.cpp")]
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build",
                          "torch_native")
 _LIB = os.path.join(BUILD_DIR, "libdnascent_native.so")
@@ -38,7 +43,7 @@ def _build() -> None:
     # never loads a half-written library
     tmp = f"{_LIB}.{os.getpid()}.tmp"
     cmd = ["g++", "-O3", "-march=native", "-fPIC", "-shared", "-std=c++17",
-           _SRC, "-o", tmp]
+           *_SRCS, "-o", tmp]
     subprocess.run(cmd, check=True, capture_output=True)
     os.replace(tmp, _LIB)
 
@@ -50,7 +55,8 @@ def _load():
             return _lib
         try:
             if (not os.path.exists(_LIB)
-                    or os.path.getmtime(_LIB) < os.path.getmtime(_SRC)):
+                    or any(os.path.getmtime(_LIB) < os.path.getmtime(src)
+                           for src in _SRCS)):
                 _build()
             lib = ctypes.CDLL(_LIB)
             i64 = ctypes.c_int64
@@ -102,6 +108,15 @@ def _load():
             lib.format_eventalign_rows.argtypes = [
                 i64p, i64p, u8p, f64p, f64p, u8p, f64p, f64p, i64,
                 ctypes.c_char_p, i64, i64, i64, ctypes.c_char_p, i64,
+            ]
+            dbl = ctypes.c_double
+            lib.baseline_detect_read.restype = dbl
+            lib.baseline_detect_read.argtypes = [
+                f64p, i64, i64p, i64, i64p, i64, i64p, f64p, i64,
+                i64, i64, dbl, dbl, dbl,
+                i64, i64, i64,
+                i64, dbl, dbl, dbl, i64, i64,
+                f64p, i64, i64,
             ]
             _lib = lib
         except Exception as e:  # pragma: no cover
@@ -198,6 +213,33 @@ def decode_moves(packed: np.ndarray, col: int, best_event: int, n_kmers: int,
     return (pairs[: 2 * m].reshape(-1, 2).copy(), cs[:n_cleaned].copy(),
             cr[:n_cleaned].copy(), float(stats[0]), bool(stats[1]),
             int(stats[2]))
+
+
+def baseline_detect_read(raw: np.ndarray, rq: np.ndarray, rr: np.ndarray,
+                         q2r: np.ndarray, model: np.ndarray, cfg) -> float:
+    """Benchmark-only: the full detect hot path (events -> scaling -> banded
+    -> Theil-Sen -> windowed Viterbi) as scalar C++ on one host core, for
+    benchmarks' CPU denominator; no detect path calls it.  Returns the
+    summed window Viterbi scores (NaN = QC fail)."""
+    lib = get_lib()
+    hmm = np.asarray([cfg.hmm.external_D2D, cfg.hmm.external_D2M,
+                      cfg.hmm.external_I2M, cfg.hmm.external_M2D,
+                      cfg.hmm.internal_M2I, cfg.hmm.internal_I2I], np.float64)
+    return float(lib.baseline_detect_read(
+        np.ascontiguousarray(raw, np.float64), int(raw.shape[0]),
+        np.ascontiguousarray(rq, np.int64), int(rq.shape[0]),
+        np.ascontiguousarray(rr, np.int64), int(rr.shape[0]),
+        np.ascontiguousarray(q2r, np.int64),
+        np.ascontiguousarray(model, np.float64), int(model.shape[0]),
+        int(cfg.events.window_length1), int(cfg.events.window_length2),
+        float(cfg.events.threshold1), float(cfg.events.threshold2),
+        float(cfg.events.peak_height),
+        int(cfg.scaling.n_quantiles), int(cfg.scaling.theilsen_max_points),
+        int(cfg.scaling.theilsen_trim),
+        int(cfg.banded.bandwidth), float(cfg.banded.epsilon_skip),
+        float(cfg.banded.p_trim), float(cfg.banded.min_average_log_emission),
+        int(cfg.banded.max_gap_threshold), int(cfg.banded.min_cleaned_events),
+        hmm, int(cfg.window_length_align), int(cfg.kmer_len)))
 
 
 def process_read_windows(codes, steps_per, ns_per, g_ev, ev_start,

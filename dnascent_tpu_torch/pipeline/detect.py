@@ -306,24 +306,39 @@ def detect_reads(records: Iterable[ReadRecord], models: PoreModelSet,
                  device: DeviceLike = "cuda", batch_size: int = 32,
                  stats: Optional[DetectStats] = None,
                  collect_failures: bool = False, pipeline_depth: int = 4,
-                 strict_windows: bool = False):
+                 strict_windows: bool = False, timer=None):
     """Generator of (read_id, DetectedRead or None) over ``records``, run on
     ``device`` (one device, or a device set: ``parallel/compute.py``) in
     batches of ``batch_size`` reads, ``pipeline_depth`` batches a device in
     flight; ``strict_windows`` aligns with the reference's window coupling
     (strict eventalign) instead of fast mode.  ``model`` lives on one of
-    the devices and is copied to the others."""
+    the devices and is copied to the others.
+
+    ``timer`` (a ``utils.progress.StageTimer``) adds up the wall time of
+    each batch's three stages under the JAX package's names.  Each stage
+    ends by reading its results back to the host (prep the Theil-Sen
+    shifts or the chase's moves, eventalign the Viterbi paths, the CNN its
+    probabilities), so on a card a stage's wall includes its device work;
+    no synchronise is added.  Batches in flight overlap, so the totals are
+    approximate (telemetry, not accounting)."""
     devices = as_devices(device)
     model.eval()
     cnns = replicate_module(model, devices)
     tables = per_device(devices, lambda d: devmod.put_rep(
         models.pore_model.astype(np.float32), d))
 
+    def stage(name):
+        return contextlib.nullcontext() if timer is None else timer.time(name)
+
     def process(batch, dev):
-        prepped = prepare_reads(batch, models, cfg, device=dev)
-        results = run_eventalign(prepped, models, cfg, strict=strict_windows,
-                                 model_table=tables[dev])
-        probs = run_cnn_batched(cnns[dev], results, prepped, dev)
+        with stage("prep(events+scaling+banded)"):
+            prepped = prepare_reads(batch, models, cfg, device=dev)
+        with stage("eventalign(viterbi)"):
+            results = run_eventalign(prepped, models, cfg,
+                                     strict=strict_windows,
+                                     model_table=tables[dev])
+        with stage("cnn_forward"):
+            probs = run_cnn_batched(cnns[dev], results, prepped, dev)
         out = []
         for p in prepped:
             rid = p.record.read_id

@@ -1,5 +1,5 @@
 """Sequence utilities: k-mer encoding, reverse complement, vectorised ranks
-(a copy of the parts of ``dnascent_tpu/utils/seqtools.py`` the port calls).
+(a copy of ``dnascent_tpu/utils/seqtools.py``).
 
 Base encoding follows the reference convention A=0, T=1, G=2, C=3 with the
 *leftmost* base most significant (reference: src/data_IO.cpp:129-141).
@@ -83,6 +83,17 @@ def kmer_ranks(seq: str, k: int) -> np.ndarray:
     return ranks
 
 
+def contains_T(seq: str, k: int) -> np.ndarray:
+    """Boolean per k-mer: does the k-mer contain a T (detect.cpp:317)."""
+    codes = encode_bases(seq)
+    n = codes.size - k + 1
+    isT = codes == 1
+    out = np.zeros(n, dtype=bool)
+    for i in range(k):
+        out |= isT[i : i + n]
+    return out
+
+
 def core_index_from_codes(codes: np.ndarray) -> np.ndarray:
     """CNN 'core' sequence index of 9-mers given per-position base codes.
 
@@ -106,3 +117,8 @@ def residual_index_from_codes(codes: np.ndarray) -> np.ndarray:
         r = r * 4 + res[..., i]
     return r + 1
 
+
+def all_defined(seq: str) -> bool:
+    """True when the sequence is exclusively A/T/G/C
+    (reference: alignment.cpp:519-544 referenceDefined)."""
+    return bool((encode_bases(seq) >= 0).all())

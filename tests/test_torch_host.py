@@ -53,7 +53,20 @@ def _assert_records_equal(a, b):
 
 
 def test_config_equal():
+    from dnascent_tpu import config as j
+    from dnascent_tpu_torch import config as t
     assert dataclasses.asdict(DNA_R10) == dataclasses.asdict(JAX_R10)
+    assert t.PRESETS.keys() == j.PRESETS.keys()
+    for name in (None, *t.PRESETS):
+        assert t.get_config(name) is DNA_R10
+        assert (dataclasses.asdict(t.get_config(name))
+                == dataclasses.asdict(j.get_config(name)))
+    msgs = []
+    for mod in (t, j):
+        with pytest.raises(KeyError) as e:
+            mod.get_config("RNA_R9")
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1] and "unknown substrate preset" in msgs[0]
 
 
 def test_seqtools_equal():
@@ -76,6 +89,12 @@ def test_seqtools_equal():
                                   j.core_index_from_codes(codes))
     np.testing.assert_array_equal(t.residual_index_from_codes(codes),
                                   j.residual_index_from_codes(codes))
+    for k in (1, 5, 9):
+        np.testing.assert_array_equal(t.contains_T(seq, k),
+                                      j.contains_T(seq, k))
+    for s in (seq, "ACGT" * 20, "ACGTN", "acgt", "", "T"):
+        assert t.all_defined(s) == j.all_defined(s)
+    assert t.all_defined("GATTACA") and not t.all_defined("GATNACA")
 
 
 def test_pore_models_equal(tmp_path, models, port_models):
@@ -606,3 +625,109 @@ def test_merge_host_outputs_equal(tmp_path):
     for n in (3, 4):
         assert (tm.all_shards_present(out, n)
                 == jm.all_shards_present(out, n) == (n == 3))
+
+
+def _error_classes():
+    from dnascent_tpu.utils import errors
+    return sorted(name for name, obj in vars(errors).items()
+                  if isinstance(obj, type) and issubclass(obj, Exception)
+                  and obj.__module__ == errors.__name__)
+
+
+@pytest.mark.parametrize("name", _error_classes())
+def test_errors_equal(name):
+    """Every class of the JAX package's error taxonomy has its copy in the
+    port, a subclass of the port's base class, with the same message for
+    the same arguments."""
+    from dnascent_tpu.utils import errors as j
+    from dnascent_tpu_torch.utils import errors as t
+    jcls, tcls = getattr(j, name), getattr(t, name)
+    assert issubclass(tcls, t.DNAscentError)
+    assert [c.__name__ for c in tcls.__mro__] == \
+        [c.__name__ for c in jcls.__mro__]
+    made = 0
+    for args in ((), ("reads/batch0.fast5",)):
+        try:
+            want = str(jcls(*args))
+        except TypeError:
+            with pytest.raises(TypeError):
+                tcls(*args)
+            continue
+        assert str(tcls(*args)) == want
+        made += 1
+    assert made
+
+
+def test_signal_qc_equal():
+    """scrappie's raw-signal QC helpers, the port's host copy against the
+    JAX package's on seeded signals: exactly equal."""
+    from dnascent_tpu.ops import signal_qc as j
+    from dnascent_tpu_torch.ops import signal_qc as t
+    rng = np.random.default_rng(21)
+    assert t.MAD_SCALING_FACTOR == j.MAD_SCALING_FACTOR
+    flank = rng.normal(80, 0.5, 700)
+    for raw in (rng.normal(90, 12, 5000),
+                np.concatenate([flank, rng.normal(95, 15, 6000), flank]),
+                rng.normal(90, 12, 99), rng.normal(90, 12, 1),
+                np.full(400, 7.0)):
+        for p in (0.0, 0.2, 0.5, 1.0, np.array([0.1, 0.9])):
+            np.testing.assert_array_equal(t.quantilef(raw, p),
+                                          j.quantilef(raw, p))
+        assert t.madf(raw) == j.madf(raw)
+        assert t.madf(raw, 90.0) == j.madf(raw, 90.0)
+        for chunk, perc in ((100, 0.2), (2, 0.0), (37, 0.5), (500, 1.0)):
+            assert (t.trim_raw_by_mad(raw, chunk, perc)
+                    == j.trim_raw_by_mad(raw, chunk, perc))
+        assert t.trim_and_segment_raw(raw) == j.trim_and_segment_raw(raw)
+        assert (t.trim_and_segment_raw(raw, 10, 5, 50, 0.3)
+                == j.trim_and_segment_raw(raw, 10, 5, 50, 0.3))
+    assert np.isnan(t.quantilef(np.empty(0), 0.5))
+
+
+def test_savedmodel_to_npz_equal(tmp_path):
+    """``savedmodel_to_npz`` of both packages on one SavedModel bundle:
+    the same keys and equal arrays."""
+    from dnascent_tpu.models import cnn_import as jci
+    from dnascent_tpu_torch.models import cnn_import as tci, reference_cnn
+    from dnascent_tpu_torch.testing.tf_bundle_writer import \
+        write_savedmodel_dir
+    d = str(tmp_path / "model")
+    write_savedmodel_dir(
+        d, reference_cnn.seed_affine(reference_cnn.synthetic_tensors(6), 7))
+    n_t = tci.savedmodel_to_npz(d, str(tmp_path / "port.npz"))
+    n_j = jci.savedmodel_to_npz(d, str(tmp_path / "jax.npz"))
+    with np.load(tmp_path / "port.npz") as a, \
+            np.load(tmp_path / "jax.npz") as b:
+        assert n_t == n_j == len(a.files) > 100
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            assert a[k].dtype == b[k].dtype, k
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def test_stage_timer_counts_every_call_under_threads():
+    """Detect's worker threads share one ``StageTimer``: under a short
+    switch interval and more threads than cores, no update is lost."""
+    import sys
+    import threading
+
+    from dnascent_tpu_torch.utils.progress import StageTimer
+    timer = StageTimer()
+    n_threads, n_calls = 32, 400
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        def work():
+            for _ in range(n_calls):
+                with timer.time("stage"):
+                    pass
+        threads = [threading.Thread(target=work) for _ in range(n_threads)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=60)
+        assert not any(th.is_alive() for th in threads)
+    finally:
+        sys.setswitchinterval(old)
+    assert timer.counts["stage"] == n_threads * n_calls
+    assert timer.totals["stage"] > 0.0

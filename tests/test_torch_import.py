@@ -1,7 +1,8 @@
 """PyTorch port: it imports and runs without jax and without the JAX
-package ``dnascent_tpu``, and its CLI takes every flag of the JAX CLI (the
-multi-device and multi-process ones included), while it ignores ``--HMM``
-on align and trainCNN, as the JAX CLI does."""
+package ``dnascent_tpu`` (its writers, dataset builder, signal QC, error
+taxonomy and CPU baseline included), and its CLI takes every flag of the
+JAX CLI (the multi-device and multi-process ones included), while it
+ignores ``--HMM`` on align and trainCNN, as the JAX CLI does."""
 
 import os
 import re
@@ -47,6 +48,13 @@ from dnascent_tpu_torch.tools import bedgraph
 from dnascent_tpu_torch.models import cnn, reference_cnn
 from dnascent_tpu_torch.ops import banded_cuda, gru_cuda, hmm, viterbi_cuda
 from dnascent_tpu_torch.parallel import collectives, compute, merge, mesh
+from dnascent_tpu_torch.io import fast5_io, fasta, pod5_io, poremodel
+from dnascent_tpu_torch.testing import dataset
+from dnascent_tpu_torch.ops import signal_qc
+from dnascent_tpu_torch.utils import errors, progress, seqtools
+from dnascent_tpu_torch.models import cnn_import
+from dnascent_tpu_torch import config
+assert config.get_config("DNA_R10.4.1") is config.DNA_R10
 rng = np.random.default_rng(0)
 ev = torch.from_numpy(rng.normal(0, 1, (2, 60)).astype(np.float32))
 mu = torch.from_numpy(rng.normal(0, 1, (2, 40)).astype(np.float32))
@@ -82,6 +90,14 @@ text = dict(hmm_detect.hmm_detect_reads(
     SimulatedSource(pms, DNA_R10, n_reads=1, length=1200, seed=3), pms,
     DNA_R10, device="cpu"))
 assert len(text) == 1 and all(t.count("\n") > 1 for t in text.values())
+rec = next(iter(SimulatedSource(pms, DNA_R10, n_reads=1, length=1200,
+                                seed=4)))
+rq = seqtools.kmer_ranks(rec.basecall, DNA_R10.kmer_len)
+rr = seqtools.kmer_ranks(rec.reference_seq, DNA_R10.kmer_len)
+assert np.isfinite(native.baseline_detect_read(
+    rec.raw, rq, rr, rec.query_to_ref[: rq.shape[0]],
+    pms.pore_model.astype(np.float64), DNA_R10))
+assert signal_qc.trim_and_segment_raw(rec.raw)[0] >= 200
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not bad, bad
 print("NO_JAX_OK")
