@@ -117,7 +117,15 @@ Phases, one line each:
      present, ``testing.dataset.build_dataset``'s files through
      ``cli.main(["detect", ...])`` with ``--device cuda`` and ``cpu``:
      the same reads and positions, probabilities within phase 2's
-     tolerance; a missing library is printed on a line of its own.
+     tolerance; a missing library is printed on a line of its own;
+ 11. the port's benchmark, ``bench_torch.py``, run as a subprocess at a
+     reduced size (64 reads of 10 kb, 2 passes at pipeline depths 1 and
+     10, no 50 kb point, a mixed point of 8 reads, ``BENCH_BASELINE`` set
+     so that the CPU baseline is not measured: its ``vs_baseline`` is no
+     reading): its last line must parse, its gate pass, its value and peak
+     device memory be positive, and its launch counts show A-D and F (E
+     none); then ``graft_entry.entry()`` and ``dryrun_multichip(n)`` at
+     their default device, the card (n the visible cards).
 Each path's launch counts are set to 0 just before it and read just after.
 The shapes of phases 3-5 (each path's C launches and F's live-step
 histogram, recorded by observers around the wrappers) show whether phase
@@ -1852,29 +1860,11 @@ def phase10b(np, models, records, passed):
     not as detect does, so the agreement is printed, not gated."""
     from dnascent_tpu_torch import native
     from dnascent_tpu_torch.config import DNA_R10
-    from dnascent_tpu_torch.utils.seqtools import kmer_ranks
 
-    cfg = DNA_R10
-    table = models.pore_model.astype(np.float64)
-    old = os.sched_getaffinity(0)
-    core = min(old)
-    seconds, checksums, agree = [], [], 0
-    os.sched_setaffinity(0, {core})
-    try:
-        for rec in records[:8]:
-            rq = kmer_ranks(rec.basecall, cfg.kmer_len)
-            rr = kmer_ranks(rec.reference_seq, cfg.kmer_len)
-            q2r = np.full(rq.shape[0], -1, np.int64)
-            m = min(rec.query_to_ref.shape[0], rq.shape[0])
-            q2r[:m] = rec.query_to_ref[:m]
-            t0 = time.perf_counter()
-            cs = native.baseline_detect_read(rec.raw, rq, rr, q2r, table,
-                                             cfg)
-            seconds.append(time.perf_counter() - t0)
-            checksums.append(cs)
-            agree += bool(np.isfinite(cs)) == (rec.read_id in passed)
-    finally:
-        os.sched_setaffinity(0, old)
+    core, seconds, checksums = native.time_baseline_reads(
+        records[:8], models.pore_model.astype(np.float64), DNA_R10)
+    agree = sum(bool(np.isfinite(cs)) == (rec.read_id in passed)
+                for rec, cs in zip(records, checksums))
     if not any(np.isfinite(c) for c in checksums):
         fail("10b: the CPU baseline failed QC on every read")
     return dict(reads=len(seconds), read_length=10000, pinned_core=core,
@@ -2003,6 +1993,86 @@ def phase10c(np, models, tmp):
     return out
 
 
+# phase 11: bench_torch.py as __main__ in a fresh interpreter, with any
+# import of jax or the JAX package failing
+PHASE11_RUNNER = r"""
+import runpy, sys
+for _mod in ("jax", "flax", "optax", "dnascent_tpu"):
+    sys.modules[_mod] = None
+sys.argv = [sys.argv[1]]
+runpy.run_path(sys.argv[0], run_name="__main__")
+"""
+# phase 11's reduced size; BENCH_BASELINE stands in for the CPU baseline
+PHASE11_ENV = dict(BENCH_READS="64", BENCH_REPS="2", BENCH_DEPTHS="1,10",
+                   BENCH_DEPTH="10", BENCH_LONG_READS="0",
+                   BENCH_MIXED_READS="8", BENCH_BASELINE="1")
+
+
+def phase11_bench():
+    """11: ``bench_torch.py`` at phase 11's size in a subprocess on the
+    card; its record must parse, pass its gate and show A-D and F launched
+    (E not)."""
+    env = dict(os.environ, **PHASE11_ENV)
+    env.pop("BENCH_BUDGET_S", None)
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", PHASE11_RUNNER,
+                          os.path.join(ROOT, "bench_torch.py")], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=400)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        fail(f"11: bench_torch.py exited {res.returncode}:\n"
+             f"{res.stderr[-3000:]}")
+    try:
+        out = json.loads(res.stdout.strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        fail(f"11: no JSON record in bench_torch.py's output:\n"
+             f"{res.stdout[-2000:]}")
+    launches = out.get("launches") or {}
+    missing = [k for k in ("banded_fill", "banded_chase", "viterbi_fill",
+                           "viterbi_backtrace", "gru_encoder")
+               if launches.get(k, 0) <= 0]
+    if not out.get("gate", {}).get("passed"):
+        fail(f"11: the bench's gate failed: {out.get('gate')}")
+    if not out.get("value", 0) > 0 or not out.get("peak_device_mb", 0) > 0:
+        fail(f"11: value {out.get('value')}, peak device MB "
+             f"{out.get('peak_device_mb')}")
+    if missing or launches.get("banded_fill_general") != 0:
+        fail(f"11: launches {launches}: missing {missing} or E launched")
+    if not (out.get("stage_breakdown_unpipelined") or {}).get("host_steps"):
+        fail("11: no host steps in the stage breakdown")
+    return dict(wall_s=wall, env=PHASE11_ENV,
+                vs_baseline_note="BENCH_BASELINE=1 stands in for the CPU "
+                "baseline: vs_baseline is no reading", bench=out)
+
+
+def phase11_graft(torch):
+    """11, after the bench: ``graft_entry.entry()`` and
+    ``graft_entry.dryrun_multichip(n)`` at their default device (the card),
+    n the visible cards: the forward's inputs on the card, its output
+    finite, of the JAX entry's shape (4, 512, 3), its rows summing to 1;
+    both multi-device checks pass (the function raises otherwise)."""
+    from dnascent_tpu_torch import graft_entry
+    t0 = time.perf_counter()
+    fn, args = graft_entry.entry()
+    out = fn(*args)
+    sums = out.float().sum(-1)
+    if not (all(a.is_cuda for a in args) and out.is_cuda
+            and tuple(out.shape) == (4, 512, 3)
+            and bool(torch.isfinite(out).all())
+            and float((sums - 1).abs().max()) < 1e-4):
+        fail(f"11: graft_entry.entry(): inputs on {args[0].device}, output "
+             f"{tuple(out.shape)} on {out.device}, row sums "
+             f"{float(sums.min())}..{float(sums.max())}")
+    entry_s = time.perf_counter() - t0
+    n = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    graft_entry.dryrun_multichip(n)
+    return dict(entry_shape=list(out.shape), entry_device=str(out.device),
+                entry_s=entry_s, dryrun_devices=n,
+                dryrun_s=time.perf_counter() - t0)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2012,8 +2082,7 @@ def main() -> int:
     from dnascent_tpu_torch.config import DNA_R10
     from dnascent_tpu_torch.io.poremodel import synthetic_model_set
     from dnascent_tpu_torch.models import cnn
-    from dnascent_tpu_torch.ops import (banded_cuda, cuda_lib, gru_cuda,
-                                        viterbi_cuda)
+    from dnascent_tpu_torch.ops import cuda_lib
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -2047,12 +2116,7 @@ def main() -> int:
     p2 = cpu_agreement(torch, np, models, model, dev, PROB_ATOL_CPU)
     print("phase 2 cuda vs cpu detect: " + json.dumps(p2), flush=True)
 
-    counters = {"banded_fill": banded_cuda.FILL_LAUNCHES,
-                "banded_chase": banded_cuda.CHASE_LAUNCHES,
-                "viterbi_fill": viterbi_cuda.FILL_LAUNCHES,
-                "viterbi_backtrace": viterbi_cuda.BACKTRACE_LAUNCHES,
-                "banded_fill_general": banded_cuda.GENERAL_FILL_LAUNCHES,
-                "gru_encoder": gru_cuda.LAUNCHES}
+    counters = cuda_lib.launch_counters()
     a_to_d = ("banded_fill", "banded_chase", "viterbi_fill",
               "viterbi_backtrace")
     p3 = drive(torch, np, models, model, dev, counters, a_to_d)
@@ -2134,6 +2198,10 @@ def main() -> int:
     p10["wall_s"] = time.perf_counter() - t10
     print(f"phase 10 stage telemetry, CPU baseline and writers ({smi}): "
           + json.dumps(p10), flush=True)
+
+    p11 = dict(card=smi, **phase11_bench())
+    p11["graft_entry"] = phase11_graft(torch)
+    print("phase 11 bench: " + json.dumps(p11), flush=True)
 
     # (source, TPU kernel, the path whose launch count the table shows)
     meta = {

@@ -20,6 +20,7 @@ import ctypes
 import os
 import subprocess
 import threading
+import time
 
 import numpy as np
 
@@ -241,6 +242,33 @@ def baseline_detect_read(raw: np.ndarray, rq: np.ndarray, rr: np.ndarray,
         int(cfg.banded.max_gap_threshold), int(cfg.banded.min_cleaned_events),
         hmm, int(cfg.window_length_align), int(cfg.kmer_len)))
 
+
+
+def time_baseline_reads(records, model: np.ndarray, cfg):
+    """Benchmark-only: ``baseline_detect_read`` on each read record, pinned
+    to one host core (the lowest of the process's affinity; the affinity is
+    restored after).  Returns (core, seconds a read, checksums); only the
+    call is timed, not the k-mer ranks and the query-to-reference padding
+    built for it."""
+    from ..utils.seqtools import kmer_ranks
+    old = os.sched_getaffinity(0)
+    core = min(old)
+    seconds, checksums = [], []
+    os.sched_setaffinity(0, {core})
+    try:
+        for rec in records:
+            rq = kmer_ranks(rec.basecall, cfg.kmer_len)
+            rr = kmer_ranks(rec.reference_seq, cfg.kmer_len)
+            q2r = np.full(rq.shape[0], -1, np.int64)
+            m = min(rec.query_to_ref.shape[0], rq.shape[0])
+            q2r[:m] = rec.query_to_ref[:m]
+            t0 = time.perf_counter()
+            checksums.append(baseline_detect_read(rec.raw, rq, rr, q2r,
+                                                  model, cfg))
+            seconds.append(time.perf_counter() - t0)
+    finally:
+        os.sched_setaffinity(0, old)
+    return core, seconds, checksums
 
 def process_read_windows(codes, steps_per, ns_per, g_ev, ev_start,
                          ri_arr, rc_arr, indel_arr, is_reverse, k,

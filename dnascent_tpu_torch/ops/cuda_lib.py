@@ -192,3 +192,16 @@ class LaunchCounter:
     def reset(self) -> None:
         with self._lock:
             self.count = 0
+
+
+def launch_counters() -> dict:
+    """Every kernel wrapper's ``LaunchCounter`` by kernel name: A
+    ``banded_fill``, B ``banded_chase``, C ``viterbi_fill``, D
+    ``viterbi_backtrace``, E ``banded_fill_general``, F ``gru_encoder``."""
+    from . import banded_cuda, gru_cuda, viterbi_cuda
+    return {"banded_fill": banded_cuda.FILL_LAUNCHES,
+            "banded_chase": banded_cuda.CHASE_LAUNCHES,
+            "viterbi_fill": viterbi_cuda.FILL_LAUNCHES,
+            "viterbi_backtrace": viterbi_cuda.BACKTRACE_LAUNCHES,
+            "banded_fill_general": banded_cuda.GENERAL_FILL_LAUNCHES,
+            "gru_encoder": gru_cuda.LAUNCHES}

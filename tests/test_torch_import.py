@@ -1,8 +1,9 @@
 """PyTorch port: it imports and runs without jax and without the JAX
 package ``dnascent_tpu`` (its writers, dataset builder, signal QC, error
-taxonomy and CPU baseline included), and its CLI takes every flag of the
-JAX CLI (the multi-device and multi-process ones included), while it
-ignores ``--HMM`` on align and trainCNN, as the JAX CLI does."""
+taxonomy, CPU baseline, benchmark and graft entry points included), and
+its CLI takes every flag of the JAX CLI (the multi-device and
+multi-process ones included), while it ignores ``--HMM`` on align and
+trainCNN, as the JAX CLI does."""
 
 import os
 import re
@@ -98,6 +99,10 @@ assert np.isfinite(native.baseline_detect_read(
     rec.raw, rq, rr, rec.query_to_ref[: rq.shape[0]],
     pms.pore_model.astype(np.float64), DNA_R10))
 assert signal_qc.trim_and_segment_raw(rec.raw)[0] >= 200
+import bench_torch
+from dnascent_tpu_torch import graft_entry
+fn, args = graft_entry.entry(device="cpu")
+assert fn(*args).shape == (4, 512, 3)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not bad, bad
 print("NO_JAX_OK")
@@ -113,8 +118,9 @@ def test_port_imports_and_runs_without_jax():
 
 
 def _port_sources():
-    """Every .py of the port, chip_smoke.py and the port's bench scripts."""
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    """Every .py of the port (graft_entry.py included), chip_smoke.py,
+    bench_torch.py and the port's kernel bench scripts."""
+    out = [os.path.join(ROOT, f) for f in ("chip_smoke.py", "bench_torch.py")]
     out += [os.path.join(ROOT, "scripts", f)
             for f in ("bench_banded_cuda.py", "bench_viterbi_gru_cuda.py",
                       "profile_backtrace_cuda.py")]
