@@ -113,11 +113,12 @@ Phases, one line each:
      and how many reads' QC outcome agrees with (a)'s (printed, not gated:
      the baseline windows its Viterbi as ``bench.py`` does); (c) the
      port's FASTA, BAM and pore-model writers read back through its
-     readers; where pyarrow with zstandard (pod5) or h5py (fast5) is
-     present, ``testing.dataset.build_dataset``'s files through
-     ``cli.main(["detect", ...])`` with ``--device cuda`` and ``cpu``:
-     the same reads and positions, probabilities within phase 2's
-     tolerance; a missing library is printed on a line of its own;
+     readers; ``testing.dataset.build_dataset``'s files in pod5 (VBZ
+     through pyarrow's zstd codec: the phase fails without it) and, where
+     h5py is present, in fast5, through ``cli.main(["detect", ...])``
+     with ``--device cuda`` and ``cpu``: the same reads and positions,
+     probabilities within phase 2's tolerance; a missing h5py is printed
+     on a line of its own;
  11. the port's benchmark, ``bench_torch.py``, run as a subprocess at a
      reduced size (64 reads of 10 kb, 2 passes at pipeline depths 1 and
      10, no 50 kb point, a mixed point of 8 reads, ``BENCH_BASELINE`` set
@@ -125,7 +126,26 @@ Phases, one line each:
      reading): its last line must parse, its gate pass, its value and peak
      device memory be positive, and its launch counts show A-D and F (E
      none); then ``graft_entry.entry()`` and ``dryrun_multichip(n)`` at
-     their default device, the card (n the visible cards).
+     their default device, the card (n the visible cards);
+ 12. the users' command lines on pod5 files: 128 simulated 10 kb reads
+     (seeded) written by ``testing.dataset.build_dataset`` as FASTA, one
+     pod5 file and BAM, and the reference topology's seeded weights as a
+     SavedModel directory; then, each as ``python -m dnascent_tpu_torch``
+     in a fresh interpreter on the default device, exit code 0: ``index``
+     (its map equal to the dataset's index), ``detect --model`` to
+     ``.detect`` and to ``.bam``, ``align`` and ``forkSense`` on each
+     detect output (line counts of every file it writes, each with its
+     header); the same detect in this process through ``cli.main``
+     (kernels A-D and F must launch, E not; the ``.detect`` body byte-equal
+     to the subprocess's) and through ``detect_reads`` over
+     ``BamSignalSource``'s records at the CLI's batch size and depth (byte-
+     equal too); the ``.bam`` against the ``.detect`` as in phase 6, every
+     ``.align`` table checked as in phase 7, every read's decoded pod5
+     samples equal to the int16 samples the writer stored; prints each
+     command's wall time and reads/s, seconds a read of the read source and
+     of ``pod5_get_signal``, VBZ decode MB/s, the pod5 bytes, the detect's
+     peak device memory and the per-read fetch at 128 and 4096 reads a file
+     (``scripts/bench_pod5_lookup.py``).
 Each path's launch counts are set to 0 just before it and read just after.
 The shapes of phases 3-5 (each path's C launches and F's live-step
 histogram, recorded by observers around the wrappers) show whether phase
@@ -919,11 +939,12 @@ def check_table(np, rid, text, call_columns=False):
     lines = text.split("\n")
     if not (lines[0].startswith(f">{rid} ") and lines[-1] == ""):
         fail(f"{rid}: malformed eventalign table head or tail")
-    rows = [line.split("\t") for line in lines[1:-1]]
-    widths = {len(r) for r in rows}
+    rows = lines[1:-1]
+    widths = {line.count("\t") + 1 for line in rows}
     if not rows or not widths <= ({5, 7} if call_columns else {5}):
         fail(f"{rid}: eventalign rows of {sorted(widths)} columns")
-    vals = np.array([float(r[2]) for r in rows])
+    vals = np.array([line.split("\t", 3)[2] for line in rows]).astype(
+        np.float64)
     if not np.isfinite(vals).all():
         fail(f"{rid}: non-finite scaled samples")
     return len(rows)
@@ -1895,17 +1916,18 @@ def detect_rows(path):
 
 def phase10c(np, models, tmp):
     """10c: the port's FASTA, BAM and pore-model writers on this host, read
-    back through the port's readers; then, where pyarrow with zstandard
-    (pod5) or h5py (fast5) is present, the whole dataset of
-    ``testing.dataset.build_dataset`` and ``cli.main(["detect", ...])`` on
-    it with ``--device cuda`` and ``--device cpu``: the same reads,
-    coordinates and k-mers, probabilities within phase 2's tolerance.  A
-    missing library is printed on a line of its own."""
+    back through the port's readers; then the whole dataset of
+    ``testing.dataset.build_dataset`` in pod5 (pyarrow's zstd codec; it
+    fails without it) and, where h5py is present, in fast5, and
+    ``cli.main(["detect", ...])`` on it with ``--device cuda`` and
+    ``--device cpu``: the same reads, coordinates and k-mers, probabilities
+    within phase 2's tolerance.  A missing h5py is printed on a line of its
+    own."""
     import importlib.util
 
     from dnascent_tpu_torch import cli
     from dnascent_tpu_torch.config import DNA_R10
-    from dnascent_tpu_torch.io import bam as bam_io
+    from dnascent_tpu_torch.io import bam as bam_io, pod5_io
     from dnascent_tpu_torch.io.fasta import import_reference, write_fasta
     from dnascent_tpu_torch.io.poremodel import (import_pore_model_fit_stdv,
                                                  write_model_tsv)
@@ -1956,17 +1978,18 @@ def phase10c(np, models, tmp):
                model_max_abs_err=float(
                    np.abs(table - models.unlabelled_model).max()))
 
-    have = {m: importlib.util.find_spec(m) is not None
-            for m in ("pyarrow", "zstandard", "h5py")}
-    out["libraries"] = have
-    formats = []
-    if have["pyarrow"] and have["zstandard"]:
-        formats.append("pod5")
-    if have["h5py"]:
+    # pod5's codec is pyarrow's zstd; fast5 needs h5py, which the card's
+    # host lacks: only fast5 may be skipped
+    if not pod5_io.HAVE_ZSTD:
+        fail("10c: pod5 needs pyarrow with its zstd codec")
+    have_h5py = importlib.util.find_spec("h5py") is not None
+    out["libraries"] = dict(pyarrow=pod5_io.pa.__version__,
+                            pyarrow_zstd=pod5_io.HAVE_ZSTD, h5py=have_h5py)
+    formats = ["pod5"]
+    if have_h5py:
         formats.append("fast5")
-    for m, ok in have.items():
-        if not ok:
-            print(m, flush=True)
+    else:
+        print("h5py", flush=True)
     for fmt in formats:
         ds = build_dataset(os.path.join(tmp, fmt), models, n_reads=4,
                            read_length=2000, signal_format=fmt,
@@ -2071,6 +2094,246 @@ def phase11_graft(torch):
     return dict(entry_shape=list(out.shape), entry_device=str(out.device),
                 entry_s=entry_s, dryrun_devices=n,
                 dryrun_s=time.perf_counter() - t0)
+
+
+# phase 12's dataset: the 10 kb workload's reads, written as a user's files
+P12_READS, P12_LENGTH = 128, 10_000
+
+
+def run_cli(args, cwd, what, timeout=600) -> float:
+    """``python -m dnascent_tpu_torch <args>`` in a fresh interpreter at
+    ``cwd`` (the repository on its path), on the default device; it must
+    exit 0.  Returns its wall seconds."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "dnascent_tpu_torch", *args],
+                         cwd=cwd, env=env, capture_output=True, text=True,
+                         timeout=timeout)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        fail(f"12: {what} exited {res.returncode}:\n{res.stderr[-3000:]}")
+    return wall
+
+
+def line_counts(paths):
+    """{file name: lines} of each file, each of which must start with a
+    ``#`` header line."""
+    out = {}
+    for path in paths:
+        with open(path) as fh:
+            lines = fh.readlines()
+        if not lines or not lines[0].startswith("#"):
+            fail(f"12: {path} has no header")
+        out[os.path.basename(path)] = len(lines)
+    return out
+
+
+def align_texts(path):
+    """{read id: its table text} of an ``.align`` file."""
+    lines, rid = {}, None
+    with open(path) as fh:
+        for line in fh:
+            if line.startswith(">"):
+                rid = line[1:].split()[0]
+                lines[rid] = []
+            lines[rid].append(line)
+    return {k: "".join(v) for k, v in lines.items()}
+
+
+def phase12_dataset(np, models, tmp):
+    """12's files: 128 simulated 10 kb reads (seeded) as FASTA, one pod5
+    file and BAM by ``testing.dataset.build_dataset``, with the int16
+    samples the writer hands the VBZ encoder, row by row."""
+    from dnascent_tpu_torch.io import pod5_io
+    from dnascent_tpu_torch.testing.dataset import build_dataset
+    stored = []
+    encode = pod5_io.vbz_compress
+
+    def recording(samples):
+        stored.append(np.array(samples, np.int16))
+        return encode(samples)
+
+    pod5_io.vbz_compress = recording
+    t0 = time.perf_counter()
+    try:
+        ds = build_dataset(os.path.join(tmp, "ds"), models,
+                           n_reads=P12_READS, read_length=P12_LENGTH,
+                           signal_format="pod5", contig_length=1_000_000,
+                           seed=SEED + 1200)
+    finally:
+        pod5_io.vbz_compress = encode
+    return ds, stored, time.perf_counter() - t0
+
+
+def phase12_signal(np, ds, stored, records):
+    """12's signal input: every read's samples decoded from the pod5 file
+    equal the int16 samples the writer stored, and ``pod5_get_signal``
+    gives the read source's signal; the first fetch (the file's parse), the
+    fetch of every read and the VBZ decode alone, timed."""
+    from dnascent_tpu_torch.io import pod5_io
+    pod5 = os.path.join(ds.signal_dir, "batch0.pod5")
+    by_id = {r.read_id: r for r in records}
+    pod5_io._TABLE_CACHE.clear()
+    t0 = time.perf_counter()
+    pod5_io.pod5_get_signal(pod5, ds.read_ids[0])
+    open_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    signals = [pod5_io.pod5_get_signal(pod5, rid) for rid in ds.read_ids]
+    fetch_s = time.perf_counter() - t0
+    tables = pod5_io._open_tables_cached(pod5)
+    blobs = tables.signal.column("signal").to_pylist()
+    counts = tables.signal.column("samples").to_pylist()
+    if len(blobs) != len(stored):
+        fail(f"12: {len(blobs)} signal rows, the writer stored {len(stored)}")
+    t0 = time.perf_counter()
+    decoded = [pod5_io.vbz_decompress(b, n) for b, n in zip(blobs, counts)]
+    decode_s = time.perf_counter() - t0
+    row_lists = tables.reads.column("signal").to_pylist()
+    for rid, sig in zip(ds.read_ids, signals):
+        rows = row_lists[tables.rows[rid]]
+        got = np.concatenate([decoded[j] for j in rows])
+        if not np.array_equal(got, np.concatenate([stored[j] for j in rows])):
+            fail(f"12: {rid}: decoded pod5 samples differ from the stored")
+        if not np.array_equal(sig, by_id[rid].raw):
+            fail(f"12: {rid}: pod5_get_signal differs from the read source")
+    samples = sum(counts)
+    return dict(pod5_bytes=os.path.getsize(pod5), signal_rows=len(blobs),
+                samples=samples, open_and_first_fetch_s=open_s,
+                pod5_get_signal_s_per_read=fetch_s / len(signals),
+                vbz_decode_s=decode_s,
+                vbz_decode_mb_per_s_out=2 * samples / decode_s / 1e6,
+                vbz_decode_mb_per_s_in=sum(map(len, blobs)) / decode_s / 1e6)
+
+
+def phase12(torch, np, models, counters, tmp):
+    """12: the users' command lines on pod5 files, each as ``python -m
+    dnascent_tpu_torch`` on the default device (the card): ``index`` (its
+    map equal to the dataset's index), ``detect --model`` to ``.detect``
+    and to ``.bam``, ``align`` and ``forkSense`` on both detect outputs;
+    then the same detect in this process through ``cli.main`` under the
+    launch counters (A-D and F launch, E not; body byte-equal to the
+    subprocess's) and through ``detect_reads`` over the read source's
+    records at the CLI's batch size and depth (body byte-equal too); the
+    ``.bam`` against the ``.detect``, the ``.align`` tables, the decoded
+    samples against the stored ones; and the per-read fetch at 128 and 4096
+    reads a file (``scripts/bench_pod5_lookup.py``)."""
+    from dnascent_tpu_torch import cli
+    from dnascent_tpu_torch.config import DNA_R10
+    from dnascent_tpu_torch.io.fasta import import_reference
+    from dnascent_tpu_torch.io.index_io import parse_index
+    from dnascent_tpu_torch.io.poremodel import load_model_set
+    from dnascent_tpu_torch.io.writers import DetectHRWriter, detect_header
+    from dnascent_tpu_torch.models import reference_cnn
+    from dnascent_tpu_torch.parallel.compute import device_set
+    from dnascent_tpu_torch.pipeline.detect import DetectStats, detect_reads
+    from dnascent_tpu_torch.pipeline.source import BamSignalSource
+    from dnascent_tpu_torch.testing.tf_bundle_writer import write_savedmodel_dir
+
+    ds, stored, build_s = phase12_dataset(np, models, tmp)
+    model_dir = os.path.join(tmp, "detect_model")
+    write_savedmodel_dir(model_dir, reference_tensors())
+
+    def path(name):
+        return os.path.join(tmp, name)
+
+    io_args = ["-b", ds.bam, "-r", ds.reference_fa, "-i", path("idx")]
+    n = len(ds.read_ids)
+    walls = dict(index=run_cli(["index", "-f", ds.signal_dir, "-o",
+                                path("idx")], tmp, "index"))
+    if parse_index(path("idx")) != parse_index(ds.index):
+        fail("12: index's read -> file map differs from the dataset's")
+    for ext in ("detect", "bam"):
+        walls[f"detect_{ext}"] = run_cli(
+            ["detect", *io_args, "-o", path(f"out.{ext}"), "--model",
+             model_dir], tmp, f"detect -o out.{ext}")
+    walls["align"] = run_cli(["align", *io_args, "-o", path("out.align")],
+                             tmp, "align")
+    forksense = {}
+    for ext in ("detect", "bam"):
+        cwd = path(f"fs_{ext}")
+        os.makedirs(cwd)
+        walls[f"forksense_{ext}"] = run_cli(
+            ["forkSense", "-d", path(f"out.{ext}"), "-o", "out.forkSense",
+             "--order", "BrdU,EdU", "--markForks", "--markAnalogues",
+             "--markOrigins", "--markTerminations"], cwd,
+            f"forkSense -d out.{ext}")
+        forksense[ext] = line_counts(
+            [os.path.join(cwd, f) for f in sorted(os.listdir(cwd))])
+    print("phase 12 forkSense line counts: " + json.dumps(forksense),
+          flush=True)
+
+    # the same detect in this process, under the launch counters
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    with PathShapes(torch) as shapes, \
+            contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(["detect", *io_args, "-o", path("inproc.detect"),
+                       "--model", model_dir])
+    torch.cuda.synchronize()
+    inproc_s = time.perf_counter() - t0
+    launches = {k: c.count for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    if rc != 0:
+        fail(f"12: in-process detect gave {rc}")
+    missing = [k for k in ("banded_fill", "banded_chase", "viterbi_fill",
+                           "viterbi_backtrace", "gru_encoder")
+               if launches[k] == 0]
+    if missing or launches["banded_fill_general"]:
+        fail(f"12: in-process detect launches {launches}")
+    reads_out, body = detect_body(path("out.detect"))
+    if detect_body(path("inproc.detect")) != (reads_out, body):
+        fail("12: in-process detect body differs from the subprocess's")
+
+    # the read source alone, then detect_reads over its records
+    t0 = time.perf_counter()
+    records = list(BamSignalSource(ds.bam, import_reference(ds.reference_fa),
+                                   parse_index(path("idx"))))
+    source_s = time.perf_counter() - t0
+    if len(records) != n:
+        fail(f"12: the read source gave {len(records)} of {n} reads")
+    model = reference_cnn.load_savedmodel(model_dir).to("cuda")
+    stats = DetectStats()
+    with DetectHRWriter(path("lib.detect")) as w:
+        w.write_header(detect_header(ds.bam, ds.reference_fa, path("idx"), 1,
+                                     20, 1000, compute="GPU"))
+        for _rid, d in detect_reads(iter(records), load_model_set(DNA_R10),
+                                    model, DNA_R10,
+                                    device=device_set(None, "cuda"),
+                                    stats=stats, collect_failures=True):
+            if d is not None:
+                w.write(d)
+    if detect_body(path("lib.detect")) != (reads_out, body):
+        fail("12: detect_reads' body differs from the CLI's")
+
+    texts = align_texts(path("out.align"))
+    if len(texts) != reads_out:
+        fail(f"12: .align has {len(texts)} reads, .detect {reads_out}")
+    align_rows = sum(check_table(np, rid, t) for rid, t in texts.items())
+    signal = phase12_signal(np, ds, stored, records)
+
+    res = subprocess.run([sys.executable, os.path.join(
+        ROOT, "scripts", "bench_pod5_lookup.py")], capture_output=True,
+        text=True, timeout=300)
+    if res.returncode != 0:
+        fail(f"12: bench_pod5_lookup.py exited {res.returncode}:\n"
+             f"{res.stderr[-3000:]}")
+    lookup = {r["reads_a_file"]: r for r in
+              json.loads(res.stdout.strip().splitlines()[-1])["rows"]}
+    return dict(
+        reads=n, read_length=P12_LENGTH, dataset_build_s=build_s,
+        reads_out=reads_out, failed_qc=stats.failed,
+        wall_s=walls, reads_per_s={k: n / v for k, v in walls.items()},
+        inproc_detect_s=inproc_s, inproc_reads_per_s=n / inproc_s,
+        peak_mem_bytes=peak, launches=launches, shapes=shapes.report(),
+        body_sha256=body, modbam=modbam_agreement(np, path("out.bam"),
+                                                  path("out.detect")),
+        align_rows=align_rows, forksense_lines=forksense,
+        bam_signal_source_s_per_read=source_s / n, **signal, lookup=lookup)
 
 
 def main() -> int:
@@ -2203,6 +2466,13 @@ def main() -> int:
     p11["graft_entry"] = phase11_graft(torch)
     print("phase 11 bench: " + json.dumps(p11), flush=True)
 
+    t12 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        p12 = phase12(torch, np, models, counters, tmp)
+    p12["phase_wall_s"] = time.perf_counter() - t12
+    print(f"phase 12 the CLI on pod5 files ({smi}): " + json.dumps(p12),
+          flush=True)
+
     # (source, TPU kernel, the path whose launch count the table shows)
     meta = {
         "banded_fill": ("dnascent_tpu_torch/csrc/banded_fill.cu",
@@ -2221,7 +2491,7 @@ def main() -> int:
     paths = {"phase3": p3, "phase4": p4, "phase5": p5,
              "phase6": p6["modbam"], "phase7": p7["strict"],
              "phase8_hmm": p8["hmm"], "phase8_fit": p8["fit"]["batches"],
-             "phase9": p9["a"], "phase10": p10["a"]}
+             "phase9": p9["a"], "phase10": p10["a"], "phase12": p12}
     kernels = []
     for name, (src, rep, path) in meta.items():
         row = rows[name]

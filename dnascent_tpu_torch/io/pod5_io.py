@@ -12,9 +12,13 @@ Signal rows are VBZ-compressed: zig-zag delta int16 -> svb16 streamvbyte ->
 zstd (nanoporetech/vbz).  The svb16 decode (1 control bit per value -> 1 or 2
 data bytes) is vectorised with numpy.
 
-A copy of ``dnascent_tpu/io/pod5_io.py``, reader and writer; pyarrow and
-zstandard are imported guarded, so a host without them can still import the
-port, and a writer without them raises.
+A copy of ``dnascent_tpu/io/pod5_io.py``, reader and writer, whose zstd
+stage is pyarrow's own zstd codec instead of the ``zstandard`` package: a
+host with pyarrow (built with zstd) reads and writes pod5 without it.  Its
+frames are byte-equal to ``zstandard``'s at the same level.  pyarrow is
+imported guarded, so a host without it can still import the port; the
+codec then raises, naming the missing piece.  A read is found through a
+read id -> read-table row map built once per parsed file.
 
 Calibration to pA follows pod5.cpp:57-61: pA = (raw + offset) * scale.
 Dorado split-read slicing (sp/ts/ns tags) happens in the read source, as in
@@ -35,11 +39,9 @@ try:
 except Exception:  # pragma: no cover
     HAVE_ARROW = False
 
-try:
-    import zstandard
-    HAVE_ZSTD = True
-except Exception:  # pragma: no cover
-    HAVE_ZSTD = False
+# VBZ's zstd stage: pyarrow's codec, at the JAX writer's level 1
+HAVE_ZSTD = HAVE_ARROW and pa.Codec.is_available("zstd")
+_ZSTD = pa.Codec("zstd", compression_level=1) if HAVE_ZSTD else None
 
 ARROW_MAGIC = b"ARROW1"
 POD5_SIGNATURE = b"\x8bPOD\r\n\x1a\n"
@@ -90,24 +92,44 @@ def _zigzag_encode(s: np.ndarray) -> np.ndarray:
     return ((s << 1) ^ (s >> 31)).astype(np.uint16)
 
 
-def vbz_decompress(data: bytes, sample_count: int) -> np.ndarray:
-    """VBZ -> int16 samples."""
+def _require_zstd() -> None:
+    if not HAVE_ARROW:
+        raise RuntimeError("pyarrow unavailable; pod5/VBZ support disabled")
     if not HAVE_ZSTD:
-        raise RuntimeError("zstandard unavailable; pod5 support disabled")
-    raw = zstandard.ZstdDecompressor().decompress(
-        data, max_output_size=max(4 * sample_count + 64, 1 << 16))
+        raise RuntimeError(f"pyarrow {pa.__version__} was built without its "
+                           "zstd codec; pod5/VBZ support disabled")
+
+
+def _svb16_size(data: bytes, count: int) -> int:
+    """Bytes of an svb16 stream of ``count`` values: the key bytes, then one
+    data byte a value and a second one for each key bit set."""
+    n_keys = (count + 7) // 8
+    keys = np.frombuffer(data, dtype=np.uint8, count=min(n_keys, len(data)))
+    bits = np.unpackbits(keys, bitorder="little")[:count]
+    return n_keys + count + int(bits.sum())
+
+
+def vbz_decompress(data: bytes, sample_count: int) -> np.ndarray:
+    """VBZ -> int16 samples.  The stream decoder takes frames with and
+    without a content-size field (``Codec.decompress`` needs the exact size
+    up front); a stream of another length than ``sample_count`` implies is
+    refused."""
+    _require_zstd()
+    raw = pa.CompressedInputStream(pa.BufferReader(data), "zstd").read()
+    if len(raw) != _svb16_size(raw, sample_count):
+        raise ValueError(f"VBZ stream of {len(raw)} bytes, not the svb16 "
+                         f"size of {sample_count} samples")
     u = svb16_decode(raw, sample_count)
     deltas = _zigzag_decode(u)
     return np.cumsum(deltas, dtype=np.int64).astype(np.int16)
 
 
 def vbz_compress(samples: np.ndarray) -> bytes:
-    if not HAVE_ZSTD:
-        raise RuntimeError("zstandard unavailable; pod5 support disabled")
+    _require_zstd()
     s = np.asarray(samples, dtype=np.int16).astype(np.int32)
     deltas = np.diff(s, prepend=0)
     body = svb16_encode(_zigzag_encode(deltas))
-    return zstandard.ZstdCompressor(level=1).compress(body)
+    return _ZSTD.compress(body, asbytes=True)
 
 
 # ---------------------------------------------------------------------------
@@ -151,6 +173,8 @@ def _embedded_arrow_spans(buf: bytes):
 class Pod5Tables:
     reads: "pa.Table"
     signal: "pa.Table"
+    # read id -> its read-table row (the first, should an id repeat)
+    rows: dict[str, int]
 
 
 _TABLE_CACHE: dict[str, "Pod5Tables"] = {}
@@ -190,7 +214,10 @@ def _open_tables(path: str) -> Pod5Tables:
             reads_t = t
     if signal_t is None or reads_t is None:
         raise ValueError(f"{path}: could not locate pod5 read/signal tables")
-    return Pod5Tables(reads=reads_t, signal=signal_t)
+    rows: dict[str, int] = {}
+    for i, rid in enumerate(_uuid_strs(reads_t.column("read_id"))):
+        rows.setdefault(rid, i)
+    return Pod5Tables(reads=reads_t, signal=signal_t, rows=rows)
 
 
 def _uuid_strs(col) -> list[str]:
@@ -226,15 +253,12 @@ def pod5_get_signal(path: str, read_id: str, batch: int | None = None,
                     row: int | None = None) -> np.ndarray:
     """Full raw signal in pA for a read (pod5_getSignal, pod5.cpp:24-106)."""
     t = _open_tables_cached(path)
-    ids = _uuid_strs(t.reads.column("read_id"))
-    try:
-        idx = ids.index(read_id)
-    except ValueError:
+    idx = t.rows.get(read_id)
+    if idx is None:
         raise KeyError(f"{read_id} not present in {path}")
     srows = t.reads.column("signal")[idx].as_py()
     cal_offset = t.reads.column("calibration_offset")[idx].as_py()
     cal_scale = t.reads.column("calibration_scale")[idx].as_py()
-    sig_ids = _uuid_strs(t.signal.column("read_id"))
     chunks = []
     for srow in srows:
         data = t.signal.column("signal")[srow].as_py()
@@ -262,8 +286,7 @@ def write_pod5(path: str, reads: list[tuple[str, np.ndarray]],
     require the flatbuffer footer should convert via `pod5` tooling.
     ``reads``: (read_id, signal_pA).
     """
-    if not (HAVE_ARROW and HAVE_ZSTD):
-        raise RuntimeError("pyarrow+zstandard required for pod5 writing")
+    _require_zstd()
     sig_read_ids = []
     sig_bytes = []
     sig_counts = []

@@ -103,15 +103,22 @@ def test_text_writers_equal_jax(tmp_path):
 
 
 def test_writers_without_their_library_raise(tmp_path, monkeypatch):
-    """A writer whose library is absent raises the JAX writer's
-    RuntimeError and writes no file in another format."""
+    """A writer whose library is absent raises a RuntimeError naming it
+    (pyarrow, pyarrow's zstd codec, h5py), as does the VBZ codec, and
+    writes no file."""
     from dnascent_tpu_torch.io import fast5_io, pod5_io
     reads = [("00000000-0000-4000-8000-000000000000", np.ones(10))]
+    blob = pod5_io.vbz_compress(np.zeros(4, np.int16))
     monkeypatch.setattr(pod5_io, "HAVE_ZSTD", False)
-    with pytest.raises(RuntimeError, match="pyarrow\\+zstandard required"):
+    with pytest.raises(RuntimeError, match="without its zstd codec"):
         pod5_io.write_pod5(str(tmp_path / "x.pod5"), reads)
-    with pytest.raises(RuntimeError, match="zstandard unavailable"):
+    with pytest.raises(RuntimeError, match="without its zstd codec"):
         pod5_io.vbz_compress(np.zeros(4, np.int16))
+    with pytest.raises(RuntimeError, match="without its zstd codec"):
+        pod5_io.vbz_decompress(blob, 4)
+    monkeypatch.setattr(pod5_io, "HAVE_ARROW", False)
+    with pytest.raises(RuntimeError, match="pyarrow unavailable"):
+        pod5_io.write_pod5(str(tmp_path / "x.pod5"), reads)
     monkeypatch.setattr(fast5_io, "HAVE_H5PY", False)
     with pytest.raises(RuntimeError, match="h5py unavailable"):
         fast5_io.write_fast5(str(tmp_path / "x.fast5"), reads)

@@ -119,11 +119,11 @@ def test_port_imports_and_runs_without_jax():
 
 def _port_sources():
     """Every .py of the port (graft_entry.py included), chip_smoke.py,
-    bench_torch.py and the port's kernel bench scripts."""
+    bench_torch.py and the port's bench scripts."""
     out = [os.path.join(ROOT, f) for f in ("chip_smoke.py", "bench_torch.py")]
     out += [os.path.join(ROOT, "scripts", f)
             for f in ("bench_banded_cuda.py", "bench_viterbi_gru_cuda.py",
-                      "profile_backtrace_cuda.py")]
+                      "profile_backtrace_cuda.py", "bench_pod5_lookup.py")]
     for dirpath, _, files in os.walk(PKG):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return out
@@ -131,6 +131,15 @@ def _port_sources():
 
 def test_no_source_file_imports_jax():
     pat = re.compile(r"^\s*(import|from)\s+(jax|flax|optax)\b", re.M)
+    for path in _port_sources():
+        with open(path) as fh:
+            assert not pat.search(fh.read()), path
+
+
+def test_no_source_file_imports_zstandard():
+    """pod5's zstd stage is pyarrow's codec: the card's host has no
+    ``zstandard``."""
+    pat = re.compile(r"^\s*(import|from)\s+zstandard\b", re.M)
     for path in _port_sources():
         with open(path) as fh:
             assert not pat.search(fh.read()), path
