@@ -145,7 +145,29 @@ Phases, one line each:
      command's wall time and reads/s, seconds a read of the read source and
      of ``pod5_get_signal``, VBZ decode MB/s, the pod5 bytes, the detect's
      peak device memory and the per-read fetch at 128 and 4096 reads a file
-     (``scripts/bench_pod5_lookup.py``).
+     (``scripts/bench_pod5_lookup.py``);
+ 13. the BrdU/EdU fork workflow of ``tests/test_workflow_e2e.py`` at a
+     user's size (``testing/painted.py``): (a) 96 painted 10 kb reads (one
+     BrdU and one EdU track of 1.5-3.5 kb each, seeded lengths, order and
+     places) through ``batches_from_labelled_reads`` on CUDA (kernels A-D
+     must launch), then the full-width DetectCNN fitted from its seeded
+     weights with AdamW (steps, ms a step, peak memory; its last loss below
+     0.6 x its first), written as the npz ``--cnn-weights`` reads; (b) 256
+     painted 20 kb reads (96 right forks, 96 left forks, 64 origins, tracks
+     of 2-4 kb; in about a quarter of the fork reads the BrdU track runs
+     to the read end) written as FASTA, one pod5 file, BAM, index and
+     truth; ``detect --cnn-weights`` as ``python -m dnascent_tpu_torch`` in
+     a fresh interpreter on the default device, and ``detect_reads`` over
+     ``BamSignalSource``'s records in this process (A-D launched, E and F
+     not; body byte-equal to the subprocess's); (c) CUDA against the CPU
+     with the fitted weights on four painted 3 kb reads, within phase 2's
+     tolerance; (d) each analogue's mean probability inside its tracks
+     over its mean outside every track above 2 in at least 90 % of the
+     QC-passing reads; (e) the forkSense CLI (host): at least 70 % of the
+     right-fork reads with a ``rightForks`` call across their EdU->BrdU
+     boundary, the same for left forks, at most 5 % of the fork reads with
+     a fork of the wrong direction, origin recall printed; (f) the
+     seeBreaks CLI on forkSense's beds as in phase 6c.
 Each path's launch counts are set to 0 just before it and read just after.
 The shapes of phases 3-5 (each path's C launches and F's live-step
 histogram, recorded by observers around the wrappers) show whether phase
@@ -234,6 +256,10 @@ LIBRARY_NOTES = {
                    "steps packed (a masked step carries the state, the same "
                    "as deleting it): whole gru_encoder_library, TF32 off",
 }
+
+
+# the kernels every detect path runs: fill, chase, Viterbi fill, backtrace
+A_TO_D = ("banded_fill", "banded_chase", "viterbi_fill", "viterbi_backtrace")
 
 
 def fail(msg: str):
@@ -525,18 +551,18 @@ def phase1_gru(torch, np, dev):
     return row
 
 
-def cpu_agreement(torch, np, models, model, dev, tol):
-    """Four 2 kb reads through ``detect_reads`` on the CPU and on CUDA with
-    the same weights: read sets and positions equal, probabilities within
-    ``tol``."""
+def cpu_agreement(torch, np, models, model, dev, tol, records=None):
+    """Four reads (``records``, or simulated 2 kb reads) through
+    ``detect_reads`` on the CPU and on CUDA with the same weights: read sets
+    and positions equal, probabilities within ``tol``."""
     from dnascent_tpu_torch.config import DNA_R10
     from dnascent_tpu_torch.pipeline.source import SimulatedSource
     from dnascent_tpu_torch.pipeline.detect import detect_reads
 
     runs = []
     for d in ("cpu", dev):
-        src = SimulatedSource(models, DNA_R10, n_reads=4, length=2000,
-                              seed=SEED + 200)
+        src = records or SimulatedSource(models, DNA_R10, n_reads=4,
+                                         length=2000, seed=SEED + 200)
         runs.append(dict(detect_reads(src, models, model.to(d), device=d)))
     model.to(dev)
     cpu, gpu = runs
@@ -838,13 +864,13 @@ def within_distribution(np, got, want, what):
                 ref_std=float(want.std()))
 
 
-def phase6_seebreaks(torch, np, dev, paths):
-    """The seeBreaks CLI on phase 6's beds, parity mode then ``--fast`` on
-    the card; the device bootstrap alone at full width; and at 5000 x 4000
-    against the numpy bootstrap."""
+def seebreaks_modes(np, paths, what):
+    """The seeBreaks CLI on fork and BrdU beds and their ``.detect``
+    (``paths``: left, right, brdu, detect), parity mode (host) then
+    ``--fast`` on the card; both fractions of parity mode must be non-zero
+    (so the comparison can fail) and ``--fast``'s must lie within parity
+    mode's distribution."""
     from dnascent_tpu_torch import cli
-    from dnascent_tpu_torch.config import DNA_R10
-    from dnascent_tpu_torch.pipeline import seebreaks as sb
 
     out, fractions = {}, {}
     for mode, extra in (("parity", []), ("fast_cuda", ["--fast"])):
@@ -855,7 +881,7 @@ def phase6_seebreaks(torch, np, dev, paths):
                            paths["right"], "-a", paths["brdu"], "-d",
                            paths["detect"], "-o", path, *extra])
         if rc != 0:
-            fail(f"seeBreaks {mode} returned {rc}")
+            fail(f"{what}: seeBreaks {mode} returned {rc}")
         head, *fractions[mode] = read_seebreaks(np, path)
         out[mode] = dict(wall_s=time.perf_counter() - t0,
                          n_forks=int(head["nForks"]),
@@ -864,14 +890,26 @@ def phase6_seebreaks(torch, np, dev, paths):
                          difference=float(head["Difference"]),
                          iterations=int(fractions[mode][0].shape[0]))
     (sim_p, obs_p), (sim_f, obs_f) = fractions["parity"], fractions["fast_cuda"]
-    # the reads' varied spans and end-reaching tracks make both fractions
-    # non-zero, so the comparison below can fail
     if not (sim_p.mean() > 0 and obs_p.mean() > 0):
-        fail(f"seeBreaks parity: expected {sim_p.mean()}, observed "
+        fail(f"{what}: seeBreaks parity: expected {sim_p.mean()}, observed "
              f"{obs_p.mean()}; both must be non-zero")
     out["fast_vs_parity"] = dict(
-        expected=within_distribution(np, sim_f, sim_p, "fast vs parity sim"),
-        observed=within_distribution(np, obs_f, obs_p, "fast vs parity obs"))
+        expected=within_distribution(np, sim_f, sim_p,
+                                     f"{what}: fast vs parity sim"),
+        observed=within_distribution(np, obs_f, obs_p,
+                                     f"{what}: fast vs parity obs"))
+    return out
+
+
+def phase6_seebreaks(torch, np, dev, paths):
+    """The seeBreaks CLI on phase 6's beds, parity mode then ``--fast`` on
+    the card (the reads' varied spans and end-reaching tracks make both
+    fractions non-zero); the device bootstrap alone at full width; and at
+    5000 x 4000 against the numpy bootstrap."""
+    from dnascent_tpu_torch.config import DNA_R10
+    from dnascent_tpu_torch.pipeline import seebreaks as sb
+
+    out = seebreaks_modes(np, paths, "6c")
 
     p = DNA_R10.seebreaks
     tols = list(range(p.end_tolerance_r10, p.end_tolerance_r10
@@ -997,8 +1035,6 @@ def phase7_align(torch, np, models, dev, counters, tmp):
     reverse) on CUDA, in turns (strict, fast, fast, strict; each record is
     its mode's first run, with both runs' walls).  Returns (7b's texts of
     the first 8 reads, 7a's record, 7b's record)."""
-    a_to_d = ("banded_fill", "banded_chase", "viterbi_fill",
-              "viterbi_backtrace")
     records = align_records(models, 32, 10000, SEED + 700)
     keep = {r.read_id for r in records[:8]}
     runs, kept = {True: [], False: []}, {}
@@ -1007,7 +1043,7 @@ def phase7_align(torch, np, models, dev, counters, tmp):
             torch, np, models, dev, counters, records, strict,
             os.path.join(tmp, f"strict{int(strict)}.align"), keep)
         runs[strict].append(run)
-        missing = [k for k in a_to_d if run["launches"][k] == 0]
+        missing = [k for k in A_TO_D if run["launches"][k] == 0]
         if missing:
             fail(f"kernels never launched on align: {missing}")
     p7a, p7b = runs[True][0], runs[False][0]
@@ -1112,8 +1148,7 @@ def phase7_traincnn(torch, np, models, model, dev, counters, records,
         if "\n".join(stripped) + "\n" != fast_texts[rec.read_id]:
             fail(f"{rec.read_id}: trainCNN table without calls differs "
                  "from the fast align table")
-    missing = [k for k in ("banded_fill", "banded_chase", "viterbi_fill",
-                           "viterbi_backtrace") if launches[k] == 0]
+    missing = [k for k in A_TO_D if launches[k] == 0]
     if missing:
         fail(f"kernels never launched on trainCNN: {missing}")
     return dict(reads=len(tables), rows=n_rows, call_rows=n_calls,
@@ -1409,9 +1444,7 @@ def phase8_fit(torch, np, models, dev, counters, records, tmp):
         launches={k: c.count for k, c in counters.items()}))
     if not batches or out["batches"]["labelled"] == 0:
         fail("no training batches")
-    missing = [k for k in ("banded_fill", "banded_chase", "viterbi_fill",
-                           "viterbi_backtrace")
-               if out["batches"]["launches"][k] == 0]
+    missing = [k for k in A_TO_D if out["batches"]["launches"][k] == 0]
     if missing:
         fail(f"kernels never launched on the training batches: {missing}")
     steps = (batches * (-(-10 // len(batches))))[:10]
@@ -1611,9 +1644,7 @@ def phase9a(torch, np, models, model, counters, records, tmp, p3):
         out[name] = dict(devices=devices, reads=len(records), wall_s=wall,
                          reads_per_s=len(records) / wall, launches=launches,
                          byte_equal_to_phase3=True)
-    missing = [k for k in ("banded_fill", "banded_chase", "viterbi_fill",
-                           "viterbi_backtrace") if out["two"]["launches"][k]
-               == 0]
+    missing = [k for k in A_TO_D if out["two"]["launches"][k] == 0]
     wrong = [k for k in ("banded_fill_general", "gru_encoder")
              if out["two"]["launches"][k]]
     if missing or wrong:
@@ -2052,8 +2083,7 @@ def phase11_bench():
         fail(f"11: no JSON record in bench_torch.py's output:\n"
              f"{res.stdout[-2000:]}")
     launches = out.get("launches") or {}
-    missing = [k for k in ("banded_fill", "banded_chase", "viterbi_fill",
-                           "viterbi_backtrace", "gru_encoder")
+    missing = [k for k in A_TO_D + ("gru_encoder",)
                if launches.get(k, 0) <= 0]
     if not out.get("gate", {}).get("passed"):
         fail(f"11: the bench's gate failed: {out.get('gate')}")
@@ -2113,7 +2143,7 @@ def run_cli(args, cwd, what, timeout=600) -> float:
                          timeout=timeout)
     wall = time.perf_counter() - t0
     if res.returncode != 0:
-        fail(f"12: {what} exited {res.returncode}:\n{res.stderr[-3000:]}")
+        fail(f"{what} exited {res.returncode}:\n{res.stderr[-3000:]}")
     return wall
 
 
@@ -2241,15 +2271,15 @@ def phase12(torch, np, models, counters, tmp):
     io_args = ["-b", ds.bam, "-r", ds.reference_fa, "-i", path("idx")]
     n = len(ds.read_ids)
     walls = dict(index=run_cli(["index", "-f", ds.signal_dir, "-o",
-                                path("idx")], tmp, "index"))
+                                path("idx")], tmp, "12: index"))
     if parse_index(path("idx")) != parse_index(ds.index):
         fail("12: index's read -> file map differs from the dataset's")
     for ext in ("detect", "bam"):
         walls[f"detect_{ext}"] = run_cli(
             ["detect", *io_args, "-o", path(f"out.{ext}"), "--model",
-             model_dir], tmp, f"detect -o out.{ext}")
+             model_dir], tmp, f"12: detect -o out.{ext}")
     walls["align"] = run_cli(["align", *io_args, "-o", path("out.align")],
-                             tmp, "align")
+                             tmp, "12: align")
     forksense = {}
     for ext in ("detect", "bam"):
         cwd = path(f"fs_{ext}")
@@ -2258,7 +2288,7 @@ def phase12(torch, np, models, counters, tmp):
             ["forkSense", "-d", path(f"out.{ext}"), "-o", "out.forkSense",
              "--order", "BrdU,EdU", "--markForks", "--markAnalogues",
              "--markOrigins", "--markTerminations"], cwd,
-            f"forkSense -d out.{ext}")
+            f"12: forkSense -d out.{ext}")
         forksense[ext] = line_counts(
             [os.path.join(cwd, f) for f in sorted(os.listdir(cwd))])
     print("phase 12 forkSense line counts: " + json.dumps(forksense),
@@ -2280,9 +2310,7 @@ def phase12(torch, np, models, counters, tmp):
     peak = torch.cuda.max_memory_allocated()
     if rc != 0:
         fail(f"12: in-process detect gave {rc}")
-    missing = [k for k in ("banded_fill", "banded_chase", "viterbi_fill",
-                           "viterbi_backtrace", "gru_encoder")
-               if launches[k] == 0]
+    missing = [k for k in A_TO_D + ("gru_encoder",) if launches[k] == 0]
     if missing or launches["banded_fill_general"]:
         fail(f"12: in-process detect launches {launches}")
     reads_out, body = detect_body(path("out.detect"))
@@ -2336,6 +2364,259 @@ def phase12(torch, np, models, counters, tmp):
         bam_signal_source_s_per_read=source_s / n, **signal, lookup=lookup)
 
 
+# phase 13, the fork workflow: sizes and gates fixed before its first run.
+# Training: 96 painted 10 kb reads, one BrdU and one EdU track each of
+# 1.5-3.5 kb; the full-width DetectCNN fitted with AdamW; its last loss
+# below 0.6 x its first (tests/test_workflow_e2e.py's gate).  Forks: 256
+# painted 20 kb reads (96 right forks, 96 left, 64 origins; tracks 2-4 kb).
+P13_TRAIN = dict(n_reads=96, length=10_000, track_len=(1500, 3501))
+P13_FIT = dict(seq_len=1024, batch_size=16, epochs=6, learning_rate=1e-3)
+P13_FORKS = dict(n_right=96, n_left=96, n_origin=64, read_length=20_000,
+                 track_len=(2000, 4001))
+P13_LOSS_RATIO = 0.6
+# separation: a track's mean probability of its analogue above 2x the mean
+# outside every track, in at least 90 % of the QC-passing reads
+P13_SEPARATION, P13_SEPARATED_SHARE = 2.0, 0.9
+# forks: at least 70 % of each direction's reads called across their
+# boundary; at most 5 % of the fork reads called in the wrong direction
+P13_FORK_RECALL, P13_WRONG_SHARE = 0.7, 0.05
+def phase13_fit(torch, np, models, edu, dev, counters, npz):
+    """13's fit: the training batches of the painted reads through
+    ``batches_from_labelled_reads`` on the card (kernels A-D), then the
+    full-width DetectCNN from its seeded weights with AdamW; its loss must
+    fall below ``P13_LOSS_RATIO`` x the first; written to ``npz``."""
+    from dnascent_tpu_torch.config import DNA_R10
+    from dnascent_tpu_torch.models import cnn
+    from dnascent_tpu_torch.pipeline import traincnn as tc
+    from dnascent_tpu_torch.testing.painted import training_pairs
+
+    t0 = time.perf_counter()
+    pairs = training_pairs(models, edu, seed=SEED + 1300, **P13_TRAIN)
+    paint_s = time.perf_counter() - t0
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    batches = list(tc.batches_from_labelled_reads(
+        pairs, models, DNA_R10, seq_len=P13_FIT["seq_len"],
+        batch_size=P13_FIT["batch_size"], device=dev))
+    batches_s = time.perf_counter() - t0
+    launches = {k: c.count for k, c in counters.items()}
+    missing = [k for k in A_TO_D if launches[k] == 0]
+    if missing:
+        fail(f"13: kernels never launched on the training batches: {missing}")
+    model = cnn.init_untrained(cnn.DetectCNN(), seed=SEED).to(dev)
+    opt = tc.make_optimizer(list(model.parameters()),
+                            P13_FIT["learning_rate"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, losses = tc.train_detect_cnn(batches, model=model, optimizer=opt,
+                                    epochs=P13_FIT["epochs"], device=dev)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    if not (np.isfinite(losses).all()
+            and losses[-1] < P13_LOSS_RATIO * losses[0]):
+        fail(f"13: the fit's loss went {losses[0]} -> {losses[-1]}, not "
+             f"below {P13_LOSS_RATIO} x the first")
+    tc.save_model(model, npz)
+    per_epoch = np.asarray(losses).reshape(P13_FIT["epochs"], -1)
+    return dict(
+        reads=len(pairs), read_length=P13_TRAIN["length"],
+        paint_s=paint_s, batches=len(batches), batches_s=batches_s,
+        labelled=int(sum(b.mask.sum() for b in batches)),
+        launches=launches, steps=len(losses), epochs=P13_FIT["epochs"],
+        batch=[P13_FIT["batch_size"], P13_FIT["seq_len"]], fit_s=fit_s,
+        ms_per_step=fit_s / len(losses) * 1e3,
+        peak_mem_bytes=torch.cuda.max_memory_allocated(),
+        loss_first=losses[0], loss_last=losses[-1],
+        loss_epoch_means=per_epoch.mean(axis=1).tolist())
+
+
+def separation(np, truth, detected):
+    """Per QC-passing read, each analogue's mean probability inside its
+    painted tracks over its mean outside every track; the share of reads
+    above ``P13_SEPARATION`` must reach ``P13_SEPARATED_SHARE``."""
+    from dnascent_tpu_torch.pipeline.traincnn import LABEL_IDS
+    ratios = {"BrdU": [], "EdU": []}
+    for f in truth:
+        d = detected.get(f.read_id)
+        if d is None:
+            continue
+        lab = f.labels[d.ref_coords - f.ref_start]
+        out = lab == LABEL_IDS["Thym"]
+        for kind, p in (("BrdU", d.brdu_prob), ("EdU", d.edu_prob)):
+            inside, outside = p[lab == LABEL_IDS[kind]].mean(), p[out].mean()
+            ratios[kind].append(inside / outside if outside > 0
+                                else float("inf"))
+    res = {}
+    for kind, r in ratios.items():
+        r = np.asarray(r)
+        share = float((r > P13_SEPARATION).mean()) if r.size else 0.0
+        if share < P13_SEPARATED_SHARE:
+            fail(f"13: {kind} separates in {share:.3f} of the reads, not "
+                 f"{P13_SEPARATED_SHARE}")
+        res[kind] = dict(reads=int(r.size), share_above=share,
+                         ratio_median=float(np.median(r)),
+                         ratio_min=float(r.min()))
+    return res
+
+
+def read_bed(path):
+    """{read id: [(left, right), ...]} of a forkSense bed."""
+    out = {}
+    with open(path) as fh:
+        for line in fh:
+            if not line.startswith("#"):
+                c = line.split()
+                out.setdefault(c[3], []).append((int(c[1]), int(c[2])))
+    return out
+
+
+def fork_recall(truth, beds):
+    """Each fork read called across its boundary in its own direction, each
+    fork read called in the other, each origin read with an origin on its
+    EdU track; the recall and wrong-direction gates."""
+    hit = {"right": 0, "left": 0, "origin": 0}
+    n = {"right": 0, "left": 0, "origin": 0}
+    wrong = 0
+    other = {"right": "left", "left": "right"}
+    for f in truth:
+        n[f.pattern] += 1
+        if f.pattern == "origin":
+            e0, e1 = f.tracks[1][1:]
+            hit["origin"] += any(lb <= e1 and ub >= e0 for lb, ub in
+                                 beds["origins"].get(f.read_id, []))
+            continue
+        first_end, second_start = f.boundary()
+        hit[f.pattern] += any(lb < first_end and ub > second_start
+                              for lb, ub in beds[f.pattern].get(f.read_id,
+                                                                []))
+        wrong += f.read_id in beds[other[f.pattern]]
+    recall = {k: hit[k] / max(n[k], 1) for k in hit}
+    n_forks = n["right"] + n["left"]
+    res = dict(reads=n, recall=recall, wrong_direction=wrong,
+               wrong_share=wrong / max(n_forks, 1),
+               calls={k: sum(map(len, v.values())) for k, v in beds.items()},
+               termination_recall=None,
+               termination_note="no read is painted as a termination: every "
+                                "termination call is a false one")
+    for k in ("right", "left"):
+        if recall[k] < P13_FORK_RECALL:
+            fail(f"13: {k}-fork recall {recall[k]:.3f} < {P13_FORK_RECALL}")
+    if res["wrong_share"] > P13_WRONG_SHARE:
+        fail(f"13: {wrong} of {n_forks} fork reads called in the wrong "
+             f"direction")
+    return res
+
+
+def phase13(torch, np, models, counters, tmp, dev):
+    """13: the BrdU/EdU fork workflow at a user's size on the card.  The
+    full-width DetectCNN fitted on painted reads; painted fork reads
+    written as FASTA, pod5, BAM and index; ``detect --cnn-weights`` on them
+    as ``python -m dnascent_tpu_torch`` in a fresh interpreter (default
+    device) and in this process through ``detect_reads`` over
+    ``BamSignalSource``'s records, bodies byte-equal, A-D launched and E, F
+    not; CUDA against the CPU with the fitted weights on four painted 3 kb
+    reads; the calls' separation of the painted tracks; the forkSense CLI
+    (host) and its forks against the truth; seeBreaks in both modes."""
+    from dnascent_tpu_torch.config import DNA_R10
+    from dnascent_tpu_torch.io.fasta import import_reference
+    from dnascent_tpu_torch.io.index_io import parse_index
+    from dnascent_tpu_torch.io.writers import DetectHRWriter, detect_header
+    from dnascent_tpu_torch.models import cnn
+    from dnascent_tpu_torch.parallel.compute import device_set
+    from dnascent_tpu_torch.pipeline.detect import DetectStats, detect_reads
+    from dnascent_tpu_torch.pipeline.source import BamSignalSource
+    from dnascent_tpu_torch.testing import painted
+
+    def path(name):
+        return os.path.join(tmp, name)
+
+    edu = painted.edu_model(models)
+    npz = path("fit.npz")
+    out = dict(fit=phase13_fit(torch, np, models, edu, dev, counters, npz))
+
+    t0 = time.perf_counter()
+    ds = painted.painted_fork_dataset(path("forks"), models, seed=SEED + 1310,
+                                      **P13_FORKS)
+    out["dataset_s"] = time.perf_counter() - t0
+    truth = painted.read_truth(ds.truth)
+    n = len(truth)
+    det = path("forks.detect")
+    io_args = ["-b", ds.bam, "-r", ds.reference_fa, "-i", ds.index]
+    walls = dict(detect=run_cli(["detect", *io_args, "-o", det,
+                                 "--cnn-weights", npz], tmp, "13: detect"))
+
+    # the same detect in this process, under the launch counters
+    model = cnn.load_npz(cnn.DetectCNN(), npz).to(dev)
+    records = list(BamSignalSource(ds.bam, import_reference(ds.reference_fa),
+                                   parse_index(ds.index)))
+    stats = DetectStats()
+    detected = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    with DetectHRWriter(path("lib.detect")) as w:
+        w.write_header(detect_header(ds.bam, ds.reference_fa, ds.index, 1,
+                                     20, 1000, compute="GPU"))
+        for rid, d in detect_reads(iter(records), models, model, DNA_R10,
+                                   device=device_set(None, dev.type),
+                                   stats=stats, collect_failures=True):
+            if d is not None:
+                w.write(d)
+                detected[rid] = d
+    torch.cuda.synchronize()
+    inproc_s = time.perf_counter() - t0
+    launches = {k: c.count for k, c in counters.items()}
+    missing = [k for k in A_TO_D if launches[k] == 0]
+    if missing or launches["banded_fill_general"] or launches["gru_encoder"]:
+        fail(f"13: in-process detect launches {launches}")
+    reads_out, body = detect_body(det)
+    if detect_body(path("lib.detect")) != (reads_out, body):
+        fail("13: detect_reads' body differs from the CLI's")
+    out.update(reads=n, read_length=P13_FORKS["read_length"],
+               reads_out=reads_out, failed_qc=stats.failed,
+               called_sites=int(sum(d.ref_coords.shape[0]
+                                    for d in detected.values())),
+               inproc_detect_s=inproc_s, inproc_reads_per_s=n / inproc_s,
+               peak_mem_bytes=torch.cuda.max_memory_allocated(),
+               launches=launches, body_sha256=body)
+
+    # CUDA against the CPU with the fitted weights on painted 3 kb reads
+    labels = painted.labels_from_tracks(3000, [("EdU", 600, 1350),
+                                               ("BrdU", 1410, 2160)])
+    short = [painted.painted_read(models, edu, 3000, labels,
+                                  SEED + 1320 + i, f"cmp-{i}")
+             for i in range(4)]
+    out["cuda_vs_cpu"] = cpu_agreement(torch, np, models, model, dev,
+                                       PROB_ATOL_CPU, records=short)
+    out["separation"] = separation(np, truth, detected)
+
+    fs_dir = path("fs")
+    os.makedirs(fs_dir)
+    walls["forksense"] = run_cli(
+        ["forkSense", "-d", det, "-o", "forks.forkSense", "--order",
+         "EdU,BrdU", "--markForks", "--markOrigins", "--markTerminations",
+         "--markAnalogues"], fs_dir, "13: forkSense")
+    bed = {k: os.path.join(fs_dir, f"{name}_DNAscent_forkSense.bed")
+           for k, name in (("left", "leftForks"), ("right", "rightForks"),
+                           ("origins", "origins"),
+                           ("terminations", "terminations"),
+                           ("brdu", "BrdU"))}
+    out["forks"] = fork_recall(truth, {k: read_bed(v) for k, v in
+                                       bed.items() if k != "brdu"})
+    t0 = time.perf_counter()
+    out["seebreaks"] = seebreaks_modes(np, dict(
+        left=bed["left"], right=bed["right"], brdu=bed["brdu"], detect=det),
+        "13")
+    walls["seebreaks"] = time.perf_counter() - t0
+    out["wall_s"] = walls
+    out["detect_cli_reads_per_s"] = n / walls["detect"]
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2380,16 +2661,14 @@ def main() -> int:
     print("phase 2 cuda vs cpu detect: " + json.dumps(p2), flush=True)
 
     counters = cuda_lib.launch_counters()
-    a_to_d = ("banded_fill", "banded_chase", "viterbi_fill",
-              "viterbi_backtrace")
-    p3 = drive(torch, np, models, model, dev, counters, a_to_d)
+    p3 = drive(torch, np, models, model, dev, counters, A_TO_D)
     print("phase 3 main path: " + json.dumps(p3), flush=True)
 
     ref = reference_model(dev)
     p4 = dict(cuda_vs_cpu=cpu_agreement(torch, np, models, ref, dev,
                                         REF_PROB_ATOL_CPU))
     p4.update(drive(torch, np, models, ref, dev, counters,
-                    a_to_d + ("gru_encoder",)))
+                    A_TO_D + ("gru_encoder",)))
     print("phase 4 --model path: " + json.dumps(p4), flush=True)
 
     fit = fit_stdv_models(models)
@@ -2401,7 +2680,7 @@ def main() -> int:
                     absent=("banded_fill",)))
     print("phase 5 fit-stdv path: " + json.dumps(p5), flush=True)
 
-    p6 = dict(modbam=drive(torch, np, models, model, dev, counters, a_to_d,
+    p6 = dict(modbam=drive(torch, np, models, model, dev, counters, A_TO_D,
                            modbam=True))
     with tempfile.TemporaryDirectory() as tmp:
         paths, p6["forksense"] = phase6_forksense(np, tmp)
@@ -2473,6 +2752,13 @@ def main() -> int:
     print(f"phase 12 the CLI on pod5 files ({smi}): " + json.dumps(p12),
           flush=True)
 
+    t13 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        p13 = phase13(torch, np, models, counters, tmp, dev)
+    p13["phase_wall_s"] = time.perf_counter() - t13
+    print(f"phase 13 the fork workflow ({smi}): " + json.dumps(p13),
+          flush=True)
+
     # (source, TPU kernel, the path whose launch count the table shows)
     meta = {
         "banded_fill": ("dnascent_tpu_torch/csrc/banded_fill.cu",
@@ -2491,7 +2777,8 @@ def main() -> int:
     paths = {"phase3": p3, "phase4": p4, "phase5": p5,
              "phase6": p6["modbam"], "phase7": p7["strict"],
              "phase8_hmm": p8["hmm"], "phase8_fit": p8["fit"]["batches"],
-             "phase9": p9["a"], "phase10": p10["a"], "phase12": p12}
+             "phase9": p9["a"], "phase10": p10["a"], "phase12": p12,
+             "phase13": p13}
     kernels = []
     for name, (src, rep, path) in meta.items():
         row = rows[name]

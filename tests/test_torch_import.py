@@ -1,8 +1,8 @@
 """PyTorch port: it imports and runs without jax and without the JAX
 package ``dnascent_tpu`` (its writers, dataset builder, signal QC, error
-taxonomy, CPU baseline, benchmark and graft entry points included), and
-its CLI takes every flag of the JAX CLI (the multi-device and
-multi-process ones included), while it ignores ``--HMM`` on align and
+taxonomy, CPU baseline, benchmark, graft entry points and painted reads
+included), and its CLI takes every flag of the JAX CLI (the multi-device
+and multi-process ones included), while it ignores ``--HMM`` on align and
 trainCNN, as the JAX CLI does."""
 
 import os
@@ -50,7 +50,7 @@ from dnascent_tpu_torch.models import cnn, reference_cnn
 from dnascent_tpu_torch.ops import banded_cuda, gru_cuda, hmm, viterbi_cuda
 from dnascent_tpu_torch.parallel import collectives, compute, merge, mesh
 from dnascent_tpu_torch.io import fast5_io, fasta, pod5_io, poremodel
-from dnascent_tpu_torch.testing import dataset
+from dnascent_tpu_torch.testing import dataset, painted
 from dnascent_tpu_torch.ops import signal_qc
 from dnascent_tpu_torch.utils import errors, progress, seqtools
 from dnascent_tpu_torch.models import cnn_import
@@ -99,6 +99,9 @@ assert np.isfinite(native.baseline_detect_read(
     rec.raw, rq, rr, rec.query_to_ref[: rq.shape[0]],
     pms.pore_model.astype(np.float64), DNA_R10))
 assert signal_qc.trim_and_segment_raw(rec.raw)[0] >= 200
+lab = painted.labels_from_tracks(1200, [("BrdU", 200, 500)])
+pr = painted.painted_read(pms, painted.edu_model(pms), 1200, lab, 5, "p")
+assert pr.raw.shape[0] > 1200 and pr.basecall == pr.reference_seq
 import bench_torch
 from dnascent_tpu_torch import graft_entry
 fn, args = graft_entry.entry(device="cpu")
