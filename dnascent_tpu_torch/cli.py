@@ -284,7 +284,8 @@ def main_detect(argv) -> int:
     stats = DetectStats()
     bar = ProgressBar(max(1, total - len(done_ids)))
     # per-stage wall-clock totals on stderr, the JAX CLI's switch (with
-    # --HMM it prints the heading alone, as the JAX CLI does)
+    # --HMM it prints the heading alone, as the JAX CLI does), then the
+    # tree of the run's spans
     timer = (StageTimer()
              if os.environ.get("DNASCENT_STAGE_TIMES") == "1" else None)
     if a.HMM:
@@ -329,6 +330,8 @@ def main_detect(argv) -> int:
     if timer is not None:
         print("stage wall-clock totals:", file=sys.stderr)
         timer.report()
+        print("spans (wall ms, thread-CPU ms, calls):", file=sys.stderr)
+        timer.tree()
     _write_missing_log(out_path, ".detect.log", missing)
     print(f"\ndetect: {stats.processed} reads, {stats.failed} failed QC")
     if shard:

@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .utils.progress import span
+
 
 def resolve(device) -> torch.device:
     """Validate a device argument; a CUDA device must exist (no silent CPU
@@ -30,8 +32,25 @@ def pad_rows(n: int) -> int:
 
 
 def put_rows(x, device) -> torch.Tensor:
-    """Copy a host array to ``device``."""
-    return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    """Copy a host array to ``device``: a blocking copy from pageable
+    memory, which on a card waits for the stream's queued work (an ``h2d``
+    wait span)."""
+    with span("h2d", wait=True):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+
+def put_scalar(v: float, device) -> torch.Tensor:
+    """A 0-d float32 tensor of ``v`` on ``device``: on a card a blocking
+    copy as ``put_rows``'s (an ``h2d`` wait span)."""
+    with span("h2d", wait=True):
+        return torch.tensor(v, dtype=torch.float32, device=device)
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """A device tensor as a host array, once the work that makes it is done
+    (a ``readback`` wait span)."""
+    with span("readback", wait=True):
+        return t.cpu().numpy()
 
 
 # with one device, a batch-row array and one shared by every row (the JAX

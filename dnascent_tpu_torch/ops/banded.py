@@ -29,6 +29,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import put_scalar
+
 NEG = float("-inf")
 FROM_D, FROM_U, FROM_L = 0, 1, 2
 MOVE_D, MOVE_U, MOVE_L, MOVE_PAD = 0, 1, 2, 3
@@ -45,7 +47,7 @@ def transition_scalars(n_events: torch.Tensor, n_kmers: torch.Tensor, *,
     fE = n_events.to(torch.float32)
     fK = n_kmers.to(torch.float32)
     p_stay = 1.0 - (1.0 / (fE / fK + 1.0))
-    eps = torch.tensor(epsilon_skip, dtype=torch.float32, device=fE.device)
+    eps = put_scalar(epsilon_skip, fE.device)
     lp_stay = torch.log(p_stay)
     lp_step = torch.log1p(-(eps + p_stay))
     lp_skip = float(np.float32(np.log(epsilon_skip)))
@@ -61,7 +63,7 @@ def lean_scalars(n_events: torch.Tensor, n_kmers: torch.Tensor, *,
     ``h_c``.  Returns (lp_stay, lp_step, lp_skip, lp_trim, h_c)."""
     lp_stay, lp_step, lp_skip, lp_trim = transition_scalars(
         n_events, n_kmers, epsilon_skip=epsilon_skip, p_trim=p_trim)
-    lpc = torch.tensor(lp_const, dtype=torch.float32, device=lp_stay.device)
+    lpc = put_scalar(lp_const, lp_stay.device)
     h_c = float(np.float32(-0.5 * inv_sigma * inv_sigma))
     return ((lp_stay + lpc).contiguous(), (lp_step + lpc).contiguous(),
             lp_skip, lp_trim, h_c)

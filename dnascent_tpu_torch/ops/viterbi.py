@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import put_scalar
 from .banded import LOG_INV_SQRT_2PI
 
 NEG = float("-inf")
@@ -36,10 +37,8 @@ def transition_scores(events_per_base: torch.Tensor, hmm_probs):
     epb = events_per_base.to(torch.float32)
     one_minus = 1.0 - (1.0 / epb)
     iM2M = torch.log(one_minus)
-    eM2M = torch.log(torch.tensor(1.0 - eM2D_f - iM2I_f, dtype=torch.float32,
-                                  device=dev) - one_minus)
-    f32 = lambda v: torch.tensor(float(np.float32(np.log(v))),
-                                 dtype=torch.float32, device=dev)
+    eM2M = torch.log(put_scalar(1.0 - eM2D_f - iM2I_f, dev) - one_minus)
+    f32 = lambda v: put_scalar(float(np.float32(np.log(v))), dev)
     eOrIM2M = _logaddexp(eM2M, iM2M)
     eM2MorD = _logaddexp(eM2M, f32(eM2D_f))
     logs = tuple(float(np.float32(np.log(v))) for v in hmm_probs)
@@ -53,8 +52,7 @@ def emission_planes(ranks: torch.Tensor, model_table: torch.Tensor):
     mu = model_table[safe, 0]
     sigma = torch.clamp(model_table[safe, 1], min=1e-6)
     inv_sigma = 1.0 / sigma
-    lp_const = (torch.tensor(LOG_INV_SQRT_2PI, dtype=torch.float32,
-                             device=ranks.device) - torch.log(sigma))
+    lp_const = put_scalar(LOG_INV_SQRT_2PI, ranks.device) - torch.log(sigma)
     lp_const = torch.where(ranks < 0, NEG, lp_const)
     return mu.contiguous(), inv_sigma.contiguous(), lp_const.contiguous()
 

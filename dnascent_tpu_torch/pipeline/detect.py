@@ -34,6 +34,7 @@ from ..models import cnn as cnn_mod
 from ..models.reference_cnn import ReferenceDetectCNN
 from ..parallel.compute import (DeviceLike, as_devices, per_device,
                                 replicate_module)
+from ..utils.progress import NULL, span
 from ..utils.seqtools import _COMP_TABLE as _COMP_U8
 from .eventalign import AlignedPositions, run_eventalign
 from .prep import PreparedRead, prepare_reads
@@ -172,46 +173,50 @@ def run_cnn_batched(model: DetectModel, results: dict,
     probabilities at the read's centre-T positions}, in position order."""
     dev = devmod.resolve(device)
     halo = max(256, -(-model.receptive_field() // 256) * 256)
-    jobs = []
-    for p in prepped:
-        res = results.get(p.record.read_id)
-        if res is None or not res.qc_passed or res.positions is None:
-            continue
-        pos = res.positions
-        if pos.coord.shape[0] > chunk_positions:
-            jobs += [(p, ch) for ch in _chunk_positions(pos, chunk_positions,
-                                                        halo)]
-        else:
-            jobs.append((p, _whole(pos)))
-    buckets: dict[int, list] = {}
-    for p, ch in jobs:
-        buckets.setdefault(_bucket_len(ch.n), []).append((p, ch))
+    with span("cnn.pack"):
+        jobs = []
+        for p in prepped:
+            res = results.get(p.record.read_id)
+            if res is None or not res.qc_passed or res.positions is None:
+                continue
+            pos = res.positions
+            if pos.coord.shape[0] > chunk_positions:
+                jobs += [(p, ch) for ch in _chunk_positions(
+                    pos, chunk_positions, halo)]
+            else:
+                jobs.append((p, _whole(pos)))
+        buckets: dict[int, list] = {}
+        for p, ch in jobs:
+            buckets.setdefault(_bucket_len(ch.n), []).append((p, ch))
     parts: dict[str, list] = {}
     for L, group in sorted(buckets.items()):
         bs = max(1, batch_positions // L)
         for i in range(0, len(group), bs):
             chunk = group[i : i + bs]
             B = devmod.pad_rows(len(chunk))
-            core = np.zeros((B, L), dtype=np.int64)
-            resid = np.zeros((B, L), dtype=np.int64)
-            counts = np.zeros((B, L), dtype=np.uint8)
-            flats, t_index, t_spans = [], [], []
-            for b, (p, ch) in enumerate(chunk):
-                c, r, n_sig, flat, is_t = ch.arrays()
-                core[b, : ch.n] = c
-                resid[b, : ch.n] = r
-                counts[b, : ch.n] = n_sig
-                flats.append(flat)
-                tpos = np.flatnonzero(is_t)
-                t_index.append(b * L + tpos)
-                t_spans.append(tpos.shape[0])
-            flat = np.concatenate(flats)
+            with span("cnn.pack"):
+                core = np.zeros((B, L), dtype=np.int64)
+                resid = np.zeros((B, L), dtype=np.int64)
+                counts = np.zeros((B, L), dtype=np.uint8)
+                flats, t_index, t_spans = [], [], []
+                for b, (p, ch) in enumerate(chunk):
+                    c, r, n_sig, flat, is_t = ch.arrays()
+                    core[b, : ch.n] = c
+                    resid[b, : ch.n] = r
+                    counts[b, : ch.n] = n_sig
+                    flats.append(flat)
+                    tpos = np.flatnonzero(is_t)
+                    t_index.append(b * L + tpos)
+                    t_spans.append(tpos.shape[0])
+                flat = np.concatenate(flats)
             sig = _signal_windows(devmod.put_rows(flat, dev),
                                   devmod.put_rows(counts, dev), B, L)
-            probs = model(devmod.put_rows(core, dev),
-                          devmod.put_rows(resid, dev), sig)
+            core_d, resid_d = (devmod.put_rows(core, dev),
+                               devmod.put_rows(resid, dev))
+            with span("cnn.forward"):
+                probs = model(core_d, resid_d, sig)
             t_idx = devmod.put_rows(np.concatenate(t_index), dev)
-            sel = probs.reshape(B * L, -1)[t_idx, 1:].float().cpu().numpy()
+            sel = devmod.to_host(probs.reshape(B * L, -1)[t_idx, 1:].float())
             o = 0
             for (p, ch), ct in zip(chunk, t_spans):
                 parts.setdefault(p.record.read_id, []).append(
@@ -249,7 +254,8 @@ def _bind_thread(dev: torch.device) -> None:
 
 
 def run_batches(records: Iterable[ReadRecord], process, batch_size: int,
-                pipeline_depth: int, devices: list[torch.device]):
+                pipeline_depth: int, devices: list[torch.device],
+                timer=None):
     """Generator of ``process(batch, device)`` over ``records`` cut into
     batches of ``batch_size``, batch *i* on ``devices[i mod N]``, each
     device with ``pipeline_depth`` batches in flight on its own worker
@@ -257,24 +263,47 @@ def run_batches(records: Iterable[ReadRecord], process, batch_size: int,
     submission order (its ordered writer, detect.cpp:852-906).  Every batch
     is what it would be on one device and runs there whole, so the output
     does not depend on N.  A thread prefetches the batches (signal IO)
-    meanwhile."""
+    meanwhile.
+
+    With ``timer`` (a ``utils.progress.StageTimer``) the three threads'
+    steps are spans of batch *i*: the consumer's ``pipeline.submit_wait``
+    and ``pipeline.drain_wait``, the producer's ``pipeline.source`` (each
+    record) and ``pipeline.put_wait``, and a worker's ``batch`` around
+    ``process``, inside which the pipeline's own span sites record."""
     n_dev = len(devices)
     in_flight = pipeline_depth * n_dev
     q: "queue.Queue" = queue.Queue(maxsize=in_flight)
 
+    def traced(name, seq):
+        return NULL if timer is None else timer.span(name, batch=seq)
+
     def producer():
         cur: list[ReadRecord] = []
+        seq = 0
         try:
-            for rec in records:
-                cur.append(rec)
-                if len(cur) >= batch_size:
-                    q.put(cur)
-                    cur = []
-            if cur:
-                q.put(cur)
+            with NULL if timer is None else timer.scope("producer"):
+                it = iter(records)
+                while True:
+                    with traced("pipeline.source", seq):
+                        rec = next(it, None)
+                    if rec is None:
+                        break
+                    cur.append(rec)
+                    if len(cur) >= batch_size:
+                        with traced("pipeline.put_wait", seq):
+                            q.put(cur)
+                        cur = []
+                        seq += 1
+                if cur:
+                    with traced("pipeline.put_wait", seq):
+                        q.put(cur)
             q.put(None)
         except Exception as e:  # re-raised on the consumer side
             q.put(e)
+
+    def traced_process(seq, batch, dev):
+        with timer.scope("worker"), timer.span("batch", batch=seq):
+            return process(batch, dev)
 
     t = threading.Thread(target=producer, daemon=True)
     t.start()
@@ -284,20 +313,29 @@ def run_batches(records: Iterable[ReadRecord], process, batch_size: int,
             initargs=(dev,))) for dev in devices]
         pending: deque = deque()
         i = 0
+
+        def drain():
+            seq, fut = pending.popleft()
+            with traced("pipeline.drain_wait", seq):
+                return fut.result()
+
         while True:
-            batch = q.get()
+            with traced("pipeline.submit_wait", i):
+                batch = q.get()
             if batch is None:
                 break
             if isinstance(batch, Exception):
                 t.join()
                 raise batch
             k = i % n_dev
-            pending.append(pools[k].submit(process, batch, devices[k]))
+            job = ((process, batch, devices[k]) if timer is None
+                   else (traced_process, i, batch, devices[k]))
+            pending.append((i, pools[k].submit(*job)))
             i += 1
             while len(pending) >= in_flight:
-                yield pending.popleft().result()
+                yield drain()
         while pending:
-            yield pending.popleft().result()
+            yield drain()
     t.join()
 
 
@@ -320,7 +358,10 @@ def detect_reads(records: Iterable[ReadRecord], models: PoreModelSet,
     shifts or the chase's moves, eventalign the Viterbi paths, the CNN its
     probabilities), so on a card a stage's wall includes its device work;
     no synchronise is added.  Batches in flight overlap, so the totals are
-    approximate (telemetry, not accounting)."""
+    approximate (telemetry, not accounting).  The timer also records the
+    run's spans (``run_batches``; the steps inside the stages, ``collect``,
+    and every ``h2d`` copy and ``readback`` as a device wait), which
+    ``timer.spans()`` returns; the output does not depend on it."""
     devices = as_devices(device)
     model.eval()
     cnns = replicate_module(model, devices)
@@ -328,7 +369,7 @@ def detect_reads(records: Iterable[ReadRecord], models: PoreModelSet,
         models.pore_model.astype(np.float32), d))
 
     def stage(name):
-        return contextlib.nullcontext() if timer is None else timer.time(name)
+        return NULL if timer is None else timer.time(name)
 
     def process(batch, dev):
         with stage("prep(events+scaling+banded)"):
@@ -340,18 +381,19 @@ def detect_reads(records: Iterable[ReadRecord], models: PoreModelSet,
         with stage("cnn_forward"):
             probs = run_cnn_batched(cnns[dev], results, prepped, dev)
         out = []
-        for p in prepped:
-            rid = p.record.read_id
-            res = results.get(rid)
-            if res is None or res.positions is None or rid not in probs:
-                out.append((rid, None))
-            else:
-                out.append((rid, collect_calls(p.record, res.positions,
-                                               probs[rid])))
+        with span("collect"):
+            for p in prepped:
+                rid = p.record.read_id
+                res = results.get(rid)
+                if res is None or res.positions is None or rid not in probs:
+                    out.append((rid, None))
+                else:
+                    out.append((rid, collect_calls(p.record, res.positions,
+                                                   probs[rid])))
         return out
 
     for batch_out in run_batches(records, process, batch_size,
-                                 pipeline_depth, devices):
+                                 pipeline_depth, devices, timer):
         for rid, d in batch_out:
             if stats is not None:
                 stats.processed += 1

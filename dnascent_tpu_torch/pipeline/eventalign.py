@@ -35,6 +35,7 @@ from ..config import DNA_R10, SubstrateConfig
 from ..io.poremodel import PoreModelSet
 from ..models.cnn import RAWDEPTH, SIG_QUANT_LO, SIG_QUANT_SCALE
 from ..ops import seqcodes, viterbi as vit, viterbi_cuda
+from ..utils.progress import span
 from ..utils.seqtools import (core_index_from_codes, encode_bases,
                               residual_index_from_codes)
 from .prep import PreparedRead
@@ -414,9 +415,9 @@ def _read_paths(chunks, n_win: int, counts: np.ndarray):
     steps = np.zeros(n_win, dtype=np.int64)
     rows = []
     for cid, path, path_len in chunks:
-        plen = path_len.cpu().numpy().astype(np.int64)
+        plen = devmod.to_host(path_len).astype(np.int64)
         width = int(plen.max()) if plen.shape[0] else 0
-        rows.append((cid, path[:, :width].cpu().numpy(), plen))
+        rows.append((cid, devmod.to_host(path[:, :width]), plen))
         steps[cid] = plen
     offs = np.concatenate(([0], np.cumsum(steps)))
     flat = np.empty(int(offs[-1]), dtype=np.uint8)
@@ -434,39 +435,42 @@ def _fast_paths(states, cfg, dev, model_table, hmm_probs,
     """Fast mode: [(state, window set, codes, steps a window)] for every
     read that has windows."""
     t_cap = T_BUCKETS[-1]
-    sets: list[tuple[_ReadState, _WindowSet]] = []
-    for st in states:
-        ws = _build_window_set(st, cfg, t_cap)
-        if ws is not None:
-            sets.append((st, ws))
-    if not sets:
-        return []
-    obs_flat = _resident_obs(sets, dev)
-    ranks_flat = _batch_flat_ranks([st for st, _ in sets], dev)
+    with span("eventalign.windows"):
+        sets: list[tuple[_ReadState, _WindowSet]] = []
+        for st in states:
+            ws = _build_window_set(st, cfg, t_cap)
+            if ws is not None:
+                sets.append((st, ws))
+        if not sets:
+            return []
+        obs_flat = _resident_obs(sets, dev)
+        ranks_flat = _batch_flat_ranks([st for st, _ in sets], dev)
 
-    lens = np.concatenate([ws.g1 - ws.g0 for _, ws in sets])
-    ostarts = np.concatenate([st.flat_obs_base + ws.g0 for st, ws in sets])
-    rstarts = np.concatenate([st.rank_off + ws.ri for st, ws in sets])
-    ns = np.concatenate([ws.ns for _, ws in sets])
-    epb = np.concatenate([np.full(ws.ri.shape[0], st.p.events_per_base)
-                          for st, ws in sets])
+        lens = np.concatenate([ws.g1 - ws.g0 for _, ws in sets])
+        ostarts = np.concatenate([st.flat_obs_base + ws.g0 for st, ws in sets])
+        rstarts = np.concatenate([st.rank_off + ws.ri for st, ws in sets])
+        ns = np.concatenate([ws.ns for _, ws in sets])
+        epb = np.concatenate([np.full(ws.ri.shape[0], st.p.events_per_base)
+                              for st, ws in sets])
 
-    # group windows by (observation bucket, state bucket), then chunk
-    tb = np.searchsorted(np.asarray(T_BUCKETS), lens, side="left")
-    ns_hi = ns > N_STATE_SMALL
-    chunks = []
-    for bi in range(len(T_BUCKETS)):
-        for hi, n_pad in ((False, N_STATE_SMALL), (True, N_STATE_PAD)):
-            order = np.flatnonzero((tb == bi) & (ns_hi == hi))
-            for c0 in range(0, order.shape[0], max_windows_per_batch):
-                cid = order[c0 : c0 + max_windows_per_batch]
-                chunks.append((cid, *viterbi_windows(
-                    obs_flat, ranks_flat, model_table, lens[cid],
-                    ostarts[cid], rstarts[cid], ns[cid], epb[cid], hmm_probs,
-                    n_pad)))
-    counts = np.array([ws.ri.shape[0] for _, ws in sets], dtype=np.int64)
-    return [(st, ws, codes, steps) for (st, ws), (codes, steps)
-            in zip(sets, _read_paths(chunks, lens.shape[0], counts))]
+    with span("eventalign.viterbi"):
+        # group windows by (observation bucket, state bucket), then chunk
+        tb = np.searchsorted(np.asarray(T_BUCKETS), lens, side="left")
+        ns_hi = ns > N_STATE_SMALL
+        chunks = []
+        for bi in range(len(T_BUCKETS)):
+            for hi, n_pad in ((False, N_STATE_SMALL), (True, N_STATE_PAD)):
+                order = np.flatnonzero((tb == bi) & (ns_hi == hi))
+                for c0 in range(0, order.shape[0], max_windows_per_batch):
+                    cid = order[c0 : c0 + max_windows_per_batch]
+                    chunks.append((cid, *viterbi_windows(
+                        obs_flat, ranks_flat, model_table, lens[cid],
+                        ostarts[cid], rstarts[cid], ns[cid], epb[cid],
+                        hmm_probs, n_pad)))
+        counts = np.array([ws.ri.shape[0] for _, ws in sets], dtype=np.int64)
+        paths = _read_paths(chunks, lens.shape[0], counts)
+    return [(st, ws, codes, steps)
+            for (st, ws), (codes, steps) in zip(sets, paths)]
 
 
 def _strict_chain(st: _ReadState, cfg: SubstrateConfig, t_cap: int,
@@ -519,8 +523,8 @@ def _strict_round(windows: list[_Window], obs_flat, ranks_flat, model_table,
                             np.float64, n),
             hmm_probs,
             N_STATE_SMALL if int(ns.max()) <= N_STATE_SMALL else N_STATE_PAD)
-        plen = path_len.cpu().numpy()
-        rows = path[:, : int(plen.max())].cpu().numpy()
+        plen = devmod.to_host(path_len)
+        rows = devmod.to_host(path[:, : int(plen.max())])
         out += [rows[i, : plen[i]] for i in range(n)]
     return out
 
@@ -587,13 +591,15 @@ def _positions(st: _ReadState, ws: _WindowSet, codes: np.ndarray,
                ) -> Optional[AlignedPositions]:
     """Native post-processing of all of a read's window paths."""
     p = st.p
-    (coord, kmer_start, query_idx, ref_idx, core, res, nsig, centerT,
-     indel, sig_flat, store) = native.process_read_windows(
-        codes, steps_per, ws.ns.astype(np.int64), ws.g_ev, ws.g0, ws.ri,
-        ws.ref_coord, ws.indel, p.record.is_reverse, cfg.kmer_len,
-        p.event_raw_start, p.event_raw_end, p.record.raw, p.shift, p.scale,
-        p.record.ref_to_query, st.core_rank, st.res_rank, st.ref_codes,
-        SIG_QUANT_LO, SIG_QUANT_SCALE, RAWDEPTH)
+    ns = ws.ns.astype(np.int64)
+    with span("eventalign.postprocess"):
+        (coord, kmer_start, query_idx, ref_idx, core, res, nsig, centerT,
+         indel, sig_flat, store) = native.process_read_windows(
+            codes, steps_per, ns, ws.g_ev, ws.g0, ws.ri, ws.ref_coord,
+            ws.indel, p.record.is_reverse, cfg.kmer_len, p.event_raw_start,
+            p.event_raw_end, p.record.raw, p.shift, p.scale,
+            p.record.ref_to_query, st.core_rank, st.res_rank, st.ref_codes,
+            SIG_QUANT_LO, SIG_QUANT_SCALE, RAWDEPTH)
     if coord.shape[0] == 0:
         return None
     pos = AlignedPositions(
@@ -714,14 +720,15 @@ def run_eventalign(prepped: list[PreparedRead], models: PoreModelSet,
     hmm_probs = tuple(getattr(cfg.hmm, k) for k in HMM_KEY)
     out: dict[str, EventalignResult] = {}
     states: list[_ReadState] = []
-    for p in prepped:
-        st = None
-        if p.passed and p.event_alignment.shape[0]:
-            st = _build_state(p, models, cfg)
-        if st is None:
-            out[p.record.read_id] = EventalignResult(None, None, False)
-        else:
-            states.append(st)
+    with span("eventalign.windows"):
+        for p in prepped:
+            st = None
+            if p.passed and p.event_alignment.shape[0]:
+                st = _build_state(p, models, cfg)
+            if st is None:
+                out[p.record.read_id] = EventalignResult(None, None, False)
+            else:
+                states.append(st)
     if not states:
         return out
     dev = states[0].p.events_dev.device

@@ -21,6 +21,7 @@ import numpy as np
 
 from ..config import SubstrateConfig, DNA_R10
 from ..testing.simulate import simulate_read
+from ..utils.progress import span
 from ..utils.seqtools import reverse_complement
 
 
@@ -76,18 +77,12 @@ class BamSignalSource:
         # New subsystem vs the reference (single process; SURVEY §5).
         self.shard = shard
 
-    def count_records(self) -> int:
-        """Pre-pass counting the records this source will yield (modulo
-        missing-index skips) — the reference's ``countRecords`` progress-bar
-        total (htsInterface.cpp:15-30, detect.cpp:829).  Signal files are
-        not touched; only the BAM is scanned."""
+    def _kept(self, reader):
+        """The BAM records the filter keeps (mapq, ref span, non-empty SEQ,
+        this shard's share), as (record, CIGAR, ref_start, ref_end)."""
         from ..io import bam as bam_io
-        reader = bam_io.BamReader(self.bam_path)
-        n = 0
         seen = 0
         for rec in reader:
-            if self.max_reads is not None and n >= self.max_reads:
-                break
             if rec.is_unmapped or rec.ref_id < 0 or rec.l_seq == 0:
                 continue
             cigar = rec.cigar()
@@ -100,31 +95,40 @@ class BamSignalSource:
                 seen += 1
                 if not owner:
                     continue
+            yield rec, cigar, ref_start, ref_end
+
+    def count_records(self) -> int:
+        """Pre-pass counting the records this source will yield (modulo
+        missing-index skips) — the reference's ``countRecords`` progress-bar
+        total (htsInterface.cpp:15-30, detect.cpp:829).  Signal files are
+        not touched; only the BAM is scanned."""
+        from ..io import bam as bam_io
+        reader = bam_io.BamReader(self.bam_path)
+        n = 0
+        for _ in self._kept(reader):
+            if self.max_reads is not None and n >= self.max_reads:
+                break
             n += 1
         reader.close()
         return n
 
     def __iter__(self) -> Iterator[ReadRecord]:
+        """The records with their signal.  On a thread that records spans
+        (``utils.progress``), reading and filtering BAM records and the
+        CIGAR maps are ``source.bam`` spans and the signal fetch a
+        ``source.pod5`` span."""
         from ..io import bam as bam_io
         from ..io import fast5_io, pod5_io
 
         reader = bam_io.BamReader(self.bam_path)
+        kept = self._kept(reader)
         count = 0
-        seen = 0
-        for rec in reader:
-            if self.max_reads is not None and count >= self.max_reads:
+        while self.max_reads is None or count < self.max_reads:
+            with span("source.bam"):
+                nxt = next(kept, None)
+            if nxt is None:
                 break
-            if rec.is_unmapped or rec.ref_id < 0 or rec.l_seq == 0:
-                continue
-            cigar = rec.cigar()
-            ref_start, ref_end = bam_io.get_ref_span(cigar, rec.pos)
-            if rec.mapq < self.min_mapq or ref_end - ref_start < self.min_length:
-                continue
-            if self.shard is not None:
-                owner = seen % self.shard[1] == self.shard[0]
-                seen += 1
-                if not owner:
-                    continue
+            rec, cigar, ref_start, ref_end = nxt
             read_id = rec.qname
             fetch_id = read_id
             parent = rec.get_tag("pi")
@@ -139,9 +143,10 @@ class BamSignalSource:
                     self.on_missing(read_id)
                 continue
             if entry.path.endswith(".pod5"):
-                stored = pod5_io.read_id_to_stored(fetch_id)
-                raw = pod5_io.pod5_get_signal(entry.path, stored,
-                                              entry.batch, entry.row)
+                with span("source.pod5"):
+                    stored = pod5_io.read_id_to_stored(fetch_id)
+                    raw = pod5_io.pod5_get_signal(entry.path, stored,
+                                                  entry.batch, entry.row)
             else:
                 raw = fast5_io.fast5_get_signal(entry.path, fetch_id)
             if raw.shape[0] == 0:
@@ -153,16 +158,17 @@ class BamSignalSource:
                 else:
                     raw = raw[ts:ns]
 
-            contig = reader.ref_names[rec.ref_id]
-            refseq = self.reference[contig][ref_start:ref_end]
-            r2q, q2r, r2d, _, _ = bam_io.parse_cigar(cigar, rec.pos,
-                                                     rec.is_reverse)
-            basecall = rec.seq()
-            if rec.is_reverse:
-                basecall = reverse_complement(basecall)
-                refseq = reverse_complement(refseq)
-            q2r_arr = np.full(len(basecall), -1, dtype=np.int64)
-            q2r_arr[: q2r.shape[0]] = q2r
+            with span("source.bam"):
+                contig = reader.ref_names[rec.ref_id]
+                refseq = self.reference[contig][ref_start:ref_end]
+                r2q, q2r, r2d, _, _ = bam_io.parse_cigar(cigar, rec.pos,
+                                                         rec.is_reverse)
+                basecall = rec.seq()
+                if rec.is_reverse:
+                    basecall = reverse_complement(basecall)
+                    refseq = reverse_complement(refseq)
+                q2r_arr = np.full(len(basecall), -1, dtype=np.int64)
+                q2r_arr[: q2r.shape[0]] = q2r
             count += 1
             yield ReadRecord(
                 read_id=read_id,

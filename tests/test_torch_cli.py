@@ -209,8 +209,9 @@ def test_stage_times_and_resume(dataset, tmp_path):
     skips every read and leaves the file as it was
     (``test_cli_detect_resume``); and ``DNASCENT_STAGE_TIMES=1`` prints the
     JAX package's three stage names under "stage wall-clock totals:" on
-    stderr after the progress bar, while the ``.detect`` body stays byte
-    for byte what the run without it writes."""
+    stderr after the progress bar, then every span of the run as a tree
+    by thread role, while the ``.detect`` body stays byte for byte what the
+    run without it writes."""
     base = ["detect", *_io(dataset), "-l", "1000", "--device", "cpu",
             "--allow-untrained-cnn"]
     out = str(tmp_path / "out.detect")
@@ -233,11 +234,23 @@ def test_stage_times_and_resume(dataset, tmp_path):
     assert _body(timed) == _body(out)
     head, report = res.stderr.split("stage wall-clock totals:\n")
     assert "100.0%" in head and "failed: 0" in head
+    report, tree = report.split("spans (wall ms, thread-CPU ms, calls):\n")
     names = [line.split()[0] for line in report.splitlines()]
     assert sorted(names) == ["cnn_forward", "eventalign(viterbi)",
                              "prep(events+scaling+banded)"]
     for line in report.splitlines():
         assert re.fullmatch(r"  \S+ +[0-9.]+ ms \(1 calls\)", line), line
+    tree = tree.split("\ndetect:")[0].splitlines()
+    assert [ln for ln in tree if not ln.startswith(" ")] == [
+        "main", "producer", "worker"]
+    steps = {ln.split()[0]: ln for ln in tree if ln.startswith(" ")}
+    for name in ("pipeline.drain_wait", "pipeline.source", "source.bam",
+                 "batch", "prep.event_detection", "eventalign.postprocess",
+                 "cnn.forward", "h2d", "readback", *names):
+        assert name in steps, name
+    for ln in tree:
+        if ln.startswith(" "):
+            assert re.fullmatch(r" +\S+ +[0-9.]+ +[0-9.]+ +[0-9]+", ln), ln
 
 
 def test_cli_traincnn_fit_then_detect(dataset, tmp_path):
