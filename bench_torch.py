@@ -109,7 +109,7 @@ HOST_STEPS = (
     ("fill_rank_gather", "prep", "general_fill_inputs"),
     ("move_decode", "native", "decode_moves"),
     ("theilsen_pregather", "scaling", "theilsen_pregather"),
-    ("window_chain", "native", "window_chain"),
+    ("window_build", "native", "eventalign_batch"),
     ("read_paths", "eventalign", "_read_paths"),
     ("native_postprocess", "native", "process_read_windows"),
     ("cnn_window_build", "detect", "_chunk_positions"),

@@ -1,8 +1,9 @@
 """ctypes loader for the port's host C++ library (``dnascent_native.cpp``
 and ``baseline_cpu.cpp``, one shared object).
 
-A copy of the entries of ``dnascent_tpu/native`` that the port calls: event
-detection, the chase's move decode, the eventalign window chain and window
+The port's copies of entries of ``dnascent_tpu/native``, and its own: event
+detection, the chase's move decode, eventalign's batch entry (every
+read's state arrays and fast-mode window chain in one call) and window
 post-processing, seeBreaks' libstdc++-exact bootstrap streams, the
 eventalign table's row formatter (which, unlike the original, refuses
 rather than cuts a row that overflows its buffer, and also writes trainCNN's
@@ -18,6 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+from collections import namedtuple
 import subprocess
 import threading
 import time
@@ -83,10 +85,13 @@ def _load():
                 i64p, i64p, i64p, i64p, i64p, i64p, i64p, u8p, i64p,
                 u8p, i64p, f32p, i64, i64p, i64p,
             ]
-            lib.window_chain.restype = i64
-            lib.window_chain.argtypes = [
-                i64p, i64p, i64, i64p, i64p, i64p, i64, i64, i64,
-                i64p, i64p, i64p, i64p,
+            dbl = ctypes.c_double
+            lib.eventalign_batch.restype = i64
+            lib.eventalign_batch.argtypes = [
+                u8p, i64p, i64, i64p, i64p, f64p, i64p, f64p, i64,
+                i64, i64, dbl, dbl, i64, i64,
+                i8p, u8p, i64p, i64p, f64p, i64p, i64p, i64p, i64p, i64p,
+                i64p, i64p, i64p,
             ]
             lib.decode_moves.restype = i64
             lib.decode_moves.argtypes = [
@@ -110,7 +115,6 @@ def _load():
                 i64p, i64p, u8p, f64p, f64p, u8p, f64p, f64p, i64,
                 ctypes.c_char_p, i64, i64, i64, ctypes.c_char_p, i64,
             ]
-            dbl = ctypes.c_double
             lib.baseline_detect_read.restype = dbl
             lib.baseline_detect_read.argtypes = [
                 f64p, i64, i64p, i64, i64p, i64, i64p, f64p, i64,
@@ -160,27 +164,71 @@ def event_detect(raw: np.ndarray, w1: int = 3, w2: int = 6,
     return mean[:m].copy(), start[:m].copy(), end[:m].copy(), int(et_n[0])
 
 
-def window_chain(undef_cum: np.ndarray, bp_pos: np.ndarray,
-                 next_bp: np.ndarray, j_at: np.ndarray, guard_cum: np.ndarray,
-                 ref_len: int, k: int, total_wl: int):
-    """Native twin of the scalar window chain in dnascent_tpu's
-    eventalign._build_window_set.  Returns (ri, wl, j0, j1) i64 arrays."""
+# one row a read of eventalign_batch's ``meta``
+EVENTALIGN_META = ("ref_len", "n_kmer_ranks", "n_pairs", "n_events",
+                   "n_ref_to_query", "ref_start", "ref_end", "is_reverse")
+EventalignBatch = namedtuple(
+    "EventalignBatch", "codes defined core res mean_ref ri ns g0 g1 "
+    "ref_coord indel g_ev offsets")
+_BATCH_ERRORS = {
+    -1: "k must be at least 9",
+    -2: "a k-mer rank lies outside the pore model table",
+    -3: "a pair's event id lies outside its read's events",
+    -4: "a reference index lies outside its read's ref_to_query",
+}
+
+
+def eventalign_batch(seq: bytes, meta: np.ndarray, kmer_ranks: np.ndarray,
+                     pairs: np.ndarray, event_mean: np.ndarray,
+                     ref_to_query: np.ndarray, pore_model: np.ndarray,
+                     k: int, total_wl: int, event_mean_min: float,
+                     event_mean_max: float, t_cap: int,
+                     windows: bool = True) -> EventalignBatch:
+    """Eventalign's state arrays and, with ``windows``, its fast-mode window
+    sets for a batch of reads in one call (the native twin of the JAX
+    package's eventalign._build_state and _build_window_set, read by read).
+    The inputs are concatenated in read order; ``meta`` has one row a read,
+    the columns of ``EVENTALIGN_META``.  Returns the outputs concatenated in
+    read order, and ``offsets``, (reads + 1, 5) rows of each read's start in
+    [codes and defined, core and res, mean_ref, the window arrays, g_ev]; a
+    read with no window has none and no g_ev either."""
     lib = get_lib()
-    # worst case one window per kmer position (short tail windows)
-    n_max = max(1, ref_len - k + 2)
-    ri = np.empty(n_max, np.int64)
-    wl = np.empty(n_max, np.int64)
-    j0 = np.empty(n_max, np.int64)
-    j1 = np.empty(n_max, np.int64)
-    n = lib.window_chain(
-        np.ascontiguousarray(undef_cum, np.int64),
-        np.ascontiguousarray(bp_pos, np.int64), int(bp_pos.shape[0]),
-        np.ascontiguousarray(next_bp, np.int64),
-        np.ascontiguousarray(j_at, np.int64),
-        np.ascontiguousarray(guard_cum, np.int64),
-        int(ref_len), int(k), int(total_wl), ri, wl, j0, j1)
-    n = int(n)
-    return ri[:n], wl[:n], j0[:n], j1[:n]
+    meta = np.ascontiguousarray(meta, np.int64).reshape(
+        -1, len(EVENTALIGN_META))
+    n = meta.shape[0]
+    n_ref, n_rank, n_pairs, n_ev, n_r2q = (int(x) for x in
+                                            meta[:, :5].sum(axis=0))
+    seq = np.frombuffer(seq, np.uint8)
+    kmer_ranks = np.ascontiguousarray(kmer_ranks, np.int64)
+    pairs = np.ascontiguousarray(pairs, np.int64)
+    event_mean = np.ascontiguousarray(event_mean, np.float64)
+    ref_to_query = np.ascontiguousarray(ref_to_query, np.int64)
+    pore_mean = np.ascontiguousarray(pore_model[:, 0], np.float64)
+    if (seq.shape[0], kmer_ranks.shape[0], pairs.shape, event_mean.shape[0],
+            ref_to_query.shape[0]) != (n_ref, n_rank, (n_pairs, 2), n_ev,
+                                       n_r2q):
+        raise ValueError("eventalign_batch: inputs do not match meta")
+    n_kmer = int(np.maximum(meta[:, 0] - k + 1, 0).sum())
+    codes = np.empty(n_ref, np.int8)
+    defined = np.empty(n_ref, np.uint8)
+    core = np.empty(n_kmer, np.int64)
+    res = np.empty(n_kmer, np.int64)
+    mean_ref = np.empty(n_rank, np.float64)
+    # at most one window a k-mer start, and one more, a read
+    win = [np.empty(n_ref + n, np.int64) for _ in range(6)]
+    g_ev = np.empty(n_pairs, np.int64)
+    offsets = np.empty((n + 1, 5), np.int64)
+    n_win = int(lib.eventalign_batch(
+        seq, meta, n, kmer_ranks, pairs, event_mean, ref_to_query, pore_mean,
+        pore_mean.shape[0], int(k), int(total_wl),
+        float(event_mean_min), float(event_mean_max), int(t_cap),
+        int(bool(windows)), codes, defined, core, res, mean_ref, *win, g_ev,
+        offsets))
+    if n_win < 0:
+        raise ValueError(f"eventalign_batch: {_BATCH_ERRORS[n_win]}")
+    return EventalignBatch(codes, defined.view(np.bool_), core, res,
+                           mean_ref, *(w[:n_win] for w in win),
+                           g_ev[: int(offsets[n, 4])], offsets)
 
 
 def decode_moves(packed: np.ndarray, col: int, best_event: int, n_kmers: int,

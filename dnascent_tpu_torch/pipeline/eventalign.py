@@ -1,11 +1,12 @@
 """Windowed eventalign (port of ``dnascent_tpu/pipeline/eventalign.py``).
 
 Fast mode (detect's default, ``align --fast-windows``): every 50 bp window
-of every read is built up front on the host (windows advance by their full
-k-mer span, so they are independent), the batch's observation stream is
-rebuilt on the device from prep's resident fill input, and windows run
-through the Viterbi fill (kernel C) and the Viterbi termination and
-backtrace (kernel D) in chunks grouped by observation and state bucket.
+of every read is built up front on the host, in one native call a batch
+(windows advance by their full k-mer span, so they are independent), the
+batch's observation stream is rebuilt on the device from prep's resident
+fill input, one gather a fill group, and windows run through the Viterbi
+fill (kernel C) and the Viterbi termination and backtrace (kernel D) in
+chunks grouped by observation and state bucket.
 
 Strict mode (``align``'s default, ``detect --strict-windows``) keeps the
 reference's coupling: window n+1 starts where window n's last match ended
@@ -36,8 +37,6 @@ from ..io.poremodel import PoreModelSet
 from ..models.cnn import RAWDEPTH, SIG_QUANT_LO, SIG_QUANT_SCALE
 from ..ops import seqcodes, viterbi as vit, viterbi_cuda
 from ..utils.progress import span
-from ..utils.seqtools import (core_index_from_codes, encode_bases,
-                              residual_index_from_codes)
 from .prep import PreparedRead
 
 HMM_KEY = ("external_D2D", "external_D2M", "external_I2M", "external_M2D",
@@ -153,60 +152,58 @@ class _WindowSet:
     g_ev: np.ndarray        # the read's guarded event-id stream
 
 
-def _build_state(p: PreparedRead, models: PoreModelSet,
-                 cfg: SubstrateConfig) -> Optional[_ReadState]:
-    k = cfg.kmer_len
-    codes = encode_bases(p.record.reference_seq)
-    if codes.shape[0] - k + 1 <= 0:
-        return None
-    safe = np.where(codes < 0, 0, codes).astype(np.int64)
-    win = np.lib.stride_tricks.sliding_window_view(safe, k)
-    ranks = np.where(p.kmer_ranks_ref < 0, 0, p.kmer_ranks_ref)
-    return _ReadState(p, codes, core_index_from_codes(win),
-                      residual_index_from_codes(win),
-                      models.pore_model[ranks, 0].astype(np.float64),
-                      codes >= 0)
+@dataclass
+class _Batch:
+    """The native batch entry's output: each read's state and, for each
+    read with a window, its window set, all views into the batch's arrays
+    (window sets in state order)."""
+
+    states: list[_ReadState]
+    sets: list[tuple[_ReadState, _WindowSet]]
+    codes: np.ndarray    # every read's base codes, read after read
+    ri: np.ndarray       # the window arrays of the sets, set after set
+    ns: np.ndarray
+    g0: np.ndarray
+    g1: np.ndarray
 
 
-def _build_window_set(st: _ReadState, cfg: SubstrateConfig,
-                      t_cap: int) -> Optional[_WindowSet]:
-    """Every window of the read, as arrays.  Successful windows advance by
+def _build_batch(prepped: list[PreparedRead], models: PoreModelSet,
+                 cfg: SubstrateConfig, windows: bool) -> _Batch:
+    """Every read's state and, with ``windows``, its fast-mode window set,
+    from one native call over the batch.  Successful windows advance by
     their full k-mer span ``wl - k + 1`` (the JAX package's fast-mode
     departure from the reference's ``lastM_ref + 1`` coupling), so all
-    windows of all reads can run in one device batch."""
-    k = cfg.kmer_len
-    p = st.p
-    ref_len = len(p.record.reference_seq)
-    total_wl = cfg.window_length_align
-    r2q = p.record.ref_to_query
-    pairs = p.event_alignment
-    ev_mean = p.event_mean
-    dmin, dmax = cfg.detect.event_mean_min, cfg.detect.event_mean_max
-    undef_cum = np.concatenate(([0], np.cumsum(~st.defined)))
-    m = st.mean_ref
-    gap = np.abs(np.diff(m))
-    bp = np.zeros(m.shape[0], dtype=bool)
-    if m.shape[0] >= 3:
-        bp[1:-1] = (gap[1:] > 0.75) & (gap[:-1] > 0.75)
-    bp_pos = np.flatnonzero(bp)
-    guard_ok = (ev_mean[pairs[:, 0]] > dmin) & (ev_mean[pairs[:, 0]] < dmax)
-    guard_cum = np.concatenate(([0], np.cumsum(guard_ok)))
-    j_at = np.searchsorted(pairs[:, 1], r2q[: ref_len + 1], side="left")
-    next_bp = np.searchsorted(bp_pos, np.arange(m.shape[0] + total_wl + 1))
-    ri_a, wl_a, j0_a, j1_a = native.window_chain(
-        undef_cum, bp_pos, next_bp, j_at, guard_cum, ref_len, k, total_wl)
-    if ri_a.shape[0] == 0:
-        return None
-    g0 = guard_cum[j0_a]
-    g1 = np.minimum(guard_cum[j1_a], g0 + t_cap)
-    ns = wl_a - k + 1
-    indel = (r2q[ri_a + ns] - r2q[ri_a]) - ns
-    if p.record.is_reverse:
-        ref_coord = p.record.ref_end - ri_a - k // 2
-    else:
-        ref_coord = p.record.ref_start + ri_a + k // 2
-    return _WindowSet(ri_a, ns, g0, g1, ref_coord, indel,
-                      pairs[guard_ok, 0])
+    windows of all reads can run in one device batch.  A read shorter than
+    a k-mer gets no state, and a read with no window no window set."""
+    recs = [p.record for p in prepped]
+    meta = np.array([(len(r.reference_seq), p.kmer_ranks_ref.shape[0],
+                      p.event_alignment.shape[0], p.event_mean.shape[0],
+                      r.ref_to_query.shape[0], r.ref_start, r.ref_end,
+                      r.is_reverse) for p, r in zip(prepped, recs)],
+                    np.int64)
+    seq = "".join(r.reference_seq for r in recs).encode("ascii")
+    inputs = [np.concatenate([getattr(x, name) for x in xs]) for xs, name in (
+        (prepped, "kmer_ranks_ref"), (prepped, "event_alignment"),
+        (prepped, "event_mean"), (recs, "ref_to_query"))]
+    with span("eventalign.window_build"):
+        b = native.eventalign_batch(
+            seq, meta, *inputs, models.pore_model, cfg.kmer_len,
+            cfg.window_length_align, cfg.detect.event_mean_min,
+            cfg.detect.event_mean_max, T_BUCKETS[-1], windows)
+    offs = b.offsets.tolist()
+    states, sets = [], []
+    for p, (r0, k0, m0, w0, e0), (r1, k1, m1, w1, e1) in zip(
+            prepped, offs, offs[1:]):
+        if k1 == k0:
+            continue
+        st = _ReadState(p, b.codes[r0:r1], b.core[k0:k1], b.res[k0:k1],
+                        b.mean_ref[m0:m1], b.defined[r0:r1], rank_off=r0)
+        states.append(st)
+        if w1 > w0:
+            sets.append((st, _WindowSet(
+                b.ri[w0:w1], b.ns[w0:w1], b.g0[w0:w1], b.g1[w0:w1],
+                b.ref_coord[w0:w1], b.indel[w0:w1], b.g_ev[e0:e1])))
+    return _Batch(states, sets, b.codes, b.ri, b.ns, b.g0, b.g1)
 
 
 def _window_at(st: _ReadState, ri: int, cfg: SubstrateConfig, t_cap: int,
@@ -321,20 +318,46 @@ def _ranges(counts: np.ndarray) -> np.ndarray:
 def _resident_obs(sets, dev) -> torch.Tensor:
     """The batch's flat f16 observation stream, gathered on the device from
     prep's resident fill inputs: a read's observations are its guarded
-    events under the Theil-Sen scaling, an affine map of the quantile-scaled
-    fill input.  The f16 rounding is the JAX package's (its goldens carry
-    it)."""
+    events under the Theil-Sen scaling, an affine map ``a x + b`` of the
+    quantile-scaled fill input.  One upload and one gather a fill group:
+    the group's reads' event ids, each read's observation count, row offset
+    in the group's (B_g, E_g) input and (a, b) in f32, then on the device
+    the flat ids, the gather, an f32 multiply, an f32 add and the f16 cast
+    (the JAX package's rounding, which its goldens carry).  The groups come
+    one after another, in order of their first read; sets each read's
+    ``flat_obs_base``."""
+    groups: dict[int, list] = {}
+    for st, ws in sets:
+        groups.setdefault(id(st.p.events_dev), []).append((st, ws))
     parts = []
     base = 0
-    for st, ws in sets:
-        p = st.p
-        st.flat_obs_base = base
-        a = np.float32(p.scale_q / p.scale)
-        b = np.float32((p.shift_q - p.shift) / p.scale)
-        idx = devmod.put_rows(ws.g_ev.astype(np.int64), dev)
-        vals = p.events_dev[p.events_row].index_select(0, idx)
-        parts.append((vals * float(a) + float(b)).to(torch.float16))
-        base += ws.g_ev.shape[0]
+    for members in groups.values():
+        events = members[0][0].p.events_dev
+        r = len(members)
+        # per read: observation count and fill row; scale_q, scale,
+        # shift_q, shift
+        ints = np.array([(ws.g_ev.shape[0], st.p.events_row)
+                         for st, ws in members], np.int64)
+        sc = np.array([(st.p.scale_q, st.p.scale, st.p.shift_q, st.p.shift)
+                       for st, _ in members], np.float64)
+        ab = np.empty((r, 2), np.float32)
+        ab[:, 0] = sc[:, 0] / sc[:, 1]
+        ab[:, 1] = (sc[:, 2] - sc[:, 3]) / sc[:, 1]
+        ends = np.cumsum(ints[:, 0])
+        n = int(ends[-1])
+        for (st, _), o in zip(members, (base + ends - ints[:, 0]).tolist()):
+            st.flat_obs_base = o
+        buf = devmod.put_rows(np.concatenate(
+            [ws.g_ev for _, ws in members]
+            + [ints[:, 0], ints[:, 1] * events.shape[1],
+               ab.view(np.int64).ravel()]), dev)
+        rid = torch.repeat_interleave(buf[n : n + r], output_size=n)
+        idx = buf[:n] + buf[n + r : n + 2 * r].index_select(0, rid)
+        ab_dev = buf[n + 2 * r :].view(torch.float32).view(r, 2)
+        vals = events.reshape(-1).index_select(0, idx)
+        parts.append((vals * ab_dev[:, 0].index_select(0, rid)
+                      + ab_dev[:, 1].index_select(0, rid)).to(torch.float16))
+        base += n
     return torch.cat(parts)
 
 
@@ -361,18 +384,13 @@ def _strict_obs(states: list[_ReadState], cfg: SubstrateConfig,
     return devmod.put_rep(np.concatenate(parts), dev)
 
 
-def _batch_flat_ranks(states: list[_ReadState], dev) -> torch.Tensor:
+def _batch_flat_ranks(codes: np.ndarray, dev) -> torch.Tensor:
     """One flat rank stream for the batch, built on the device from the
-    reference base codes; sets ``st.rank_off`` (window rank starts are
+    batch's reference base codes (window rank starts are a state's
     ``rank_off + ri``)."""
-    parts = []
-    off = 0
-    for st in states:
-        st.rank_off = off
-        parts.append(st.ref_codes.astype(np.uint8))  # -1 -> 255 (non-ACGT)
-        off += st.ref_codes.shape[0]
-    codes = devmod.put_rep(np.concatenate(parts), dev)
-    return seqcodes.flat_ranks_from_codes(codes)
+    # the u8 view maps -1 (non-ACGT) to 255
+    return seqcodes.flat_ranks_from_codes(devmod.put_rep(codes.view(np.uint8),
+                                                         dev))
 
 
 def viterbi_windows(obs_flat: torch.Tensor, ranks_flat: torch.Tensor,
@@ -430,28 +448,25 @@ def _read_paths(chunks, n_win: int, counts: np.ndarray):
             for c, w1 in zip(counts, ends)]
 
 
-def _fast_paths(states, cfg, dev, model_table, hmm_probs,
+def _fast_paths(batch: _Batch, cfg, dev, model_table, hmm_probs,
                 max_windows_per_batch):
     """Fast mode: [(state, window set, codes, steps a window)] for every
     read that has windows."""
-    t_cap = T_BUCKETS[-1]
+    sets = batch.sets
     with span("eventalign.windows"):
-        sets: list[tuple[_ReadState, _WindowSet]] = []
-        for st in states:
-            ws = _build_window_set(st, cfg, t_cap)
-            if ws is not None:
-                sets.append((st, ws))
-        if not sets:
-            return []
         obs_flat = _resident_obs(sets, dev)
-        ranks_flat = _batch_flat_ranks([st for st, _ in sets], dev)
-
-        lens = np.concatenate([ws.g1 - ws.g0 for _, ws in sets])
-        ostarts = np.concatenate([st.flat_obs_base + ws.g0 for st, ws in sets])
-        rstarts = np.concatenate([st.rank_off + ws.ri for st, ws in sets])
-        ns = np.concatenate([ws.ns for _, ws in sets])
-        epb = np.concatenate([np.full(ws.ri.shape[0], st.p.events_per_base)
-                              for st, ws in sets])
+        ranks_flat = _batch_flat_ranks(batch.codes, dev)
+        # the batch's window arrays, with each window's read
+        counts, obs_base, rank_off = np.array(
+            [(ws.ri.shape[0], st.flat_obs_base, st.rank_off)
+             for st, ws in sets], np.int64).T
+        win_read = np.repeat(np.arange(len(sets)), counts)
+        lens = batch.g1 - batch.g0
+        ostarts = obs_base[win_read] + batch.g0
+        rstarts = rank_off[win_read] + batch.ri
+        ns = batch.ns
+        epb = np.fromiter((st.p.events_per_base for st, _ in sets),
+                          np.float64, len(sets))[win_read]
 
     with span("eventalign.viterbi"):
         # group windows by (observation bucket, state bucket), then chunk
@@ -467,7 +482,6 @@ def _fast_paths(states, cfg, dev, model_table, hmm_probs,
                         obs_flat, ranks_flat, model_table, lens[cid],
                         ostarts[cid], rstarts[cid], ns[cid], epb[cid],
                         hmm_probs, n_pad)))
-        counts = np.array([ws.ri.shape[0] for _, ws in sets], dtype=np.int64)
         paths = _read_paths(chunks, lens.shape[0], counts)
     return [(st, ws, codes, steps)
             for (st, ws), (codes, steps) in zip(sets, paths)]
@@ -529,7 +543,7 @@ def _strict_round(windows: list[_Window], obs_flat, ranks_flat, model_table,
     return out
 
 
-def _strict_paths(states, cfg, dev, model_table, hmm_probs,
+def _strict_paths(batch: _Batch, cfg, dev, model_table, hmm_probs,
                   max_windows_per_batch, spec_depth):
     """Strict mode's speculative wavefront.  Each round every active read
     sends a chain of ``min(its depth, spec_depth)`` windows; a chain's
@@ -546,8 +560,9 @@ def _strict_paths(states, cfg, dev, model_table, hmm_probs,
     and its wavefront does not end.)  Returns [(state, window set,
     codes, steps a window)] for every read with a committed window."""
     t_cap = T_BUCKETS[-1]
+    states = batch.states
     obs_flat = _strict_obs(states, cfg, dev)
-    ranks_flat = _batch_flat_ranks(states, dev)
+    ranks_flat = _batch_flat_ranks(batch.codes, dev)
     committed = {id(st): [] for st in states}
     active = states
     while True:
@@ -719,27 +734,28 @@ def run_eventalign(prepped: list[PreparedRead], models: PoreModelSet,
     or kept no position, come back with qc_passed=False."""
     hmm_probs = tuple(getattr(cfg.hmm, k) for k in HMM_KEY)
     out: dict[str, EventalignResult] = {}
-    states: list[_ReadState] = []
     with span("eventalign.windows"):
+        live = []
         for p in prepped:
-            st = None
             if p.passed and p.event_alignment.shape[0]:
-                st = _build_state(p, models, cfg)
-            if st is None:
-                out[p.record.read_id] = EventalignResult(None, None, False)
+                live.append(p)
             else:
-                states.append(st)
-    if not states:
-        return out
-    dev = states[0].p.events_dev.device
-    if model_table is None:
-        model_table = devmod.put_rep(models.pore_model.astype(np.float32), dev)
-    if strict:
-        paths = _strict_paths(states, cfg, dev, model_table, hmm_probs,
-                              max_windows_per_batch, spec_depth)
-    else:
-        paths = _fast_paths(states, cfg, dev, model_table, hmm_probs,
-                            max_windows_per_batch)
+                out[p.record.read_id] = EventalignResult(None, None, False)
+        if not live:
+            return out
+        batch = _build_batch(live, models, cfg, not strict)
+    paths = []
+    if batch.states:
+        dev = live[0].events_dev.device
+        if model_table is None:
+            model_table = devmod.put_rep(models.pore_model.astype(np.float32),
+                                         dev)
+        if strict:
+            paths = _strict_paths(batch, cfg, dev, model_table, hmm_probs,
+                                  max_windows_per_batch, spec_depth)
+        elif batch.sets:
+            paths = _fast_paths(batch, cfg, dev, model_table, hmm_probs,
+                                max_windows_per_batch)
     for st, ws, codes, steps in paths:
         rec = st.p.record
         calls = (None if calls_per_read is None
@@ -753,7 +769,6 @@ def run_eventalign(prepped: list[PreparedRead], models: PoreModelSet,
                     f"{rec.ref_end} {rec.strand}\n"
                     + _read_text(st, ws, codes, steps, cfg, calls))
         out[rec.read_id] = EventalignResult(pos, text, pos is not None)
-    for st in states:
-        out.setdefault(st.p.record.read_id,
-                       EventalignResult(None, None, False))
+    for p in live:
+        out.setdefault(p.record.read_id, EventalignResult(None, None, False))
     return out

@@ -212,43 +212,96 @@ def test_native_decode_moves_equal():
 
 
 @pytest.fixture(scope="module")
-def native_eventalign_calls(dataset, models, port_models):
-    """The arguments the port's eventalign hands the native window chain and
-    window post-processing, recorded on two golden reads (CPU)."""
+def port_prepped(dataset, port_models):
+    """The golden reads through the port's prep (CPU)."""
     import torch
     from dnascent_tpu.io.fasta import import_reference
     from dnascent_tpu.io.index_io import parse_index
-    from dnascent_tpu_torch import native as tn
-    from dnascent_tpu_torch.pipeline import eventalign as tea, prep as tprep
+    from dnascent_tpu_torch.pipeline import prep as tprep
     from dnascent_tpu_torch.pipeline.source import BamSignalSource
 
     torch.set_num_threads(2)
     recs = list(BamSignalSource(dataset.bam,
                                 import_reference(dataset.reference_fa),
                                 parse_index(dataset.index),
-                                min_length=1000))[:2]
-    calls = {"window_chain": [], "process_read_windows": []}
-    mp = pytest.MonkeyPatch()
-    for name in calls:
-        fn = getattr(tn, name)
+                                min_length=1000))
+    return tprep.prepare_reads(recs, port_models, DNA_R10, device="cpu")
 
-        def rec(*a, _fn=fn, _name=name, **kw):
-            calls[_name].append((a, kw))
+
+@pytest.fixture(scope="module")
+def native_eventalign_calls(port_prepped, models, port_models):
+    """The arguments the port's eventalign hands its native batch entry
+    and window post-processing on the golden reads, and those the JAX
+    package's window-set function hands its native window chain on the same
+    prepared reads (CPU)."""
+    from dnascent_tpu import native as jn
+    from dnascent_tpu.pipeline import eventalign as jea
+    from dnascent_tpu_torch import native as tn
+    from dnascent_tpu_torch.pipeline import eventalign as tea
+
+    calls = {"eventalign_batch": [], "process_read_windows": [],
+             "jax_window_chain": []}
+    mp = pytest.MonkeyPatch()
+    for mod, name, key in ((tn, "eventalign_batch", "eventalign_batch"),
+                           (tn, "process_read_windows",
+                            "process_read_windows"),
+                           (jn, "window_chain", "jax_window_chain")):
+        fn = getattr(mod, name)
+
+        def rec(*a, _fn=fn, _key=key, **kw):
+            calls[_key].append((a, kw))
             return _fn(*a, **kw)
-        mp.setattr(tn, name, rec)
+        mp.setattr(mod, name, rec)
     try:
-        pp = tprep.prepare_reads(recs, port_models, DNA_R10, device="cpu")
-        tea.run_eventalign(pp, port_models, DNA_R10)
+        tea.run_eventalign(port_prepped, port_models, DNA_R10)
+        for p in port_prepped:
+            if p.passed and p.event_alignment.shape[0]:
+                jea._build_window_set(jea._build_state(p, models, JAX_R10),
+                                      JAX_R10, tea.T_BUCKETS[-1])
     finally:
         mp.undo()
     assert all(calls.values()), {k: len(v) for k, v in calls.items()}
     return calls
 
 
+def _assert_windows_match_jax_chain(calls):
+    """The port's native batch entry, rerun on its recorded arguments, gives
+    for each read the windows of the JAX package's native window chain
+    rerun on that package's recorded arguments: the same starts,
+    ns = wl - k + 1, g0 = guard_cum[j0] and
+    g1 = min(guard_cum[j1], g0 + t_cap)."""
+    import inspect
+    from dnascent_tpu import native as jn
+    from dnascent_tpu_torch import native as tn
+
+    ((args, kw),) = calls["eventalign_batch"]
+    arg = inspect.signature(tn.eventalign_batch).bind(*args, **kw).arguments
+    k, t_cap = arg["k"], arg["t_cap"]
+    b = tn.eventalign_batch(*args, **kw)
+    jcalls = calls["jax_window_chain"]
+    assert len(jcalls) == b.offsets.shape[0] - 1
+    n_win = 0
+    for i, (ja, jkw) in enumerate(jcalls):
+        guard_cum = inspect.signature(jn.window_chain).bind(
+            *ja, **jkw).arguments["guard_cum"]
+        ri, wl, j0, j1 = jn.window_chain(*ja, **jkw)
+        w0, w1 = b.offsets[i, 3], b.offsets[i + 1, 3]
+        g0 = guard_cum[j0]
+        for got, want in ((b.ri, ri), (b.ns, wl - k + 1), (b.g0, g0),
+                          (b.g1, np.minimum(guard_cum[j1], g0 + t_cap))):
+            np.testing.assert_array_equal(got[w0:w1], want)
+        n_win += ri.shape[0]
+    assert n_win == b.ri.shape[0] > 0
+
+
 @pytest.mark.parametrize("name", ["window_chain", "process_read_windows"])
 def test_native_eventalign_equal(native_eventalign_calls, name):
     from dnascent_tpu import native as jn
     from dnascent_tpu_torch import native as tn
+
+    if name == "window_chain":
+        _assert_windows_match_jax_chain(native_eventalign_calls)
+        return
 
     def flat(out):
         for x in out:
@@ -262,6 +315,161 @@ def test_native_eventalign_equal(native_eventalign_calls, name):
         b = getattr(tn, name)(*args, **kw)
         for x, y in zip(flat(a), flat(b), strict=True):
             np.testing.assert_array_equal(x, y)
+
+
+def _simulated_prepped(port_models):
+    """Seeded reads as eventalign takes them, without prep: forward and
+    reverse, one with N runs (undefined k-mers), one whose events all fail
+    the event-mean guard (no window), one shorter than a k-mer.  The
+    reference comes from the synthetic pore model's range, so breakpoints
+    (model-mean gaps above 0.75 on both sides) are frequent."""
+    from dnascent_tpu_torch.pipeline.prep import PreparedRead
+    from dnascent_tpu_torch.pipeline.source import ReadRecord
+    from dnascent_tpu_torch.utils.seqtools import kmer_ranks
+
+    rng = np.random.default_rng(23)
+    k = DNA_R10.kmer_len
+    out = []
+    for i, (length, reverse, n_runs, guard_fail) in enumerate((
+            (1800, False, 0, 0.05), (2300, True, 0, 0.3),
+            (2000, False, 4, 0.05), (1200, True, 2, 1.0),
+            (900, False, 0, 0.0), (6, False, 0, 0.0))):
+        seq = rng.choice(list("ACGT"), length)
+        for s0 in rng.integers(0, length, n_runs):
+            seq[s0 : s0 + rng.integers(1, 30)] = "N"
+        seq = "".join(seq)
+        # a few insertions in the query
+        r2q = (np.arange(length)
+               + np.cumsum(rng.random(length) < 0.02)).astype(np.int64)
+        n_qk = max(1, int(r2q[-1]) + 1 - k + 1)
+        q = np.repeat(np.arange(n_qk), rng.integers(1, 4, n_qk))
+        pairs = np.stack([np.arange(q.shape[0]), q], 1).astype(np.int64)
+        mean = rng.normal(90.0, 15.0, q.shape[0])
+        mean[rng.random(q.shape[0]) < guard_fail] = -5.0
+        rec = ReadRecord(
+            read_id=f"sim{i}", contig="chrSim", ref_start=500 + 7 * i,
+            ref_end=500 + 7 * i + length, is_reverse=reverse, basecall=seq,
+            reference_seq=seq, ref_to_query=r2q,
+            query_to_ref=np.arange(length, dtype=np.int64),
+            ref_to_del=np.zeros(length, bool), raw=np.zeros(1))
+        out.append(PreparedRead(
+            rec, mean, np.zeros(q.shape[0], np.int64),
+            np.zeros(q.shape[0], np.int64), q.shape[0],
+            kmer_ranks(seq, k), kmer_ranks(seq, k), event_alignment=pairs))
+    return out
+
+
+@pytest.mark.parametrize("reads", ["golden", "simulated"])
+def test_eventalign_batch_matches_jax(request, models, port_models, reads):
+    """The port's native batch entry against the JAX package's per-read
+    ``_build_state`` and ``_build_window_set`` on the same prepared reads,
+    with and without window sets: every state and window array equal in
+    dtype and bits; a read shorter than a k-mer has no state, and a read
+    the JAX package builds no window set for has none."""
+    from dnascent_tpu.pipeline import eventalign as jea
+    from dnascent_tpu_torch.pipeline import eventalign as tea
+
+    if reads == "golden":
+        prepped = [p for p in request.getfixturevalue("port_prepped")
+                   if p.passed and p.event_alignment.shape[0]]
+    else:
+        prepped = _simulated_prepped(port_models)
+    t_cap = tea.T_BUCKETS[-1]
+    full_ns = JAX_R10.window_length_align - JAX_R10.kmer_len + 1
+    seen = dict(states=0, sets=0, no_state=0, no_set=0, extended=0,
+                undefined=0, reverse=0)
+    for windows in (True, False):
+        batch = tea._build_batch(prepped, port_models, DNA_R10, windows)
+        states = {st.p.record.read_id: st for st in batch.states}
+        sets = {st.p.record.read_id: ws for st, ws in batch.sets}
+        assert windows or not sets
+        for p in prepped:
+            rid = p.record.read_id
+            jst = jea._build_state(p, models, JAX_R10)
+            jws = jea._build_window_set(jst, JAX_R10, t_cap)
+            if len(p.record.reference_seq) < JAX_R10.kmer_len:
+                assert rid not in states and rid not in sets and jws is None
+                seen["no_state"] += 1
+                continue
+            st = states[rid]
+            for f in ("ref_codes", "core_rank", "res_rank", "mean_ref",
+                      "defined"):
+                a, b = getattr(jst, f), getattr(st, f)
+                assert a.dtype == b.dtype, (rid, f)
+                np.testing.assert_array_equal(b, a, err_msg=f"{rid} {f}")
+            seen["states"] += 1
+            seen["undefined"] += int(not st.defined.all())
+            if not windows:
+                continue
+            if jws is None:
+                assert rid not in sets
+                seen["no_set"] += 1
+                continue
+            ws = sets[rid]
+            for f in ("ri", "ns", "g0", "g1", "ref_coord", "indel", "g_ev"):
+                a, b = getattr(jws, f), getattr(ws, f)
+                assert a.dtype == b.dtype, (rid, f)
+                np.testing.assert_array_equal(b, a, err_msg=f"{rid} {f}")
+            seen["sets"] += 1
+            seen["extended"] += int((ws.ns > full_ns).sum())
+            seen["reverse"] += int(p.record.is_reverse)
+    assert seen["states"] == 2 * len(prepped) - seen["no_state"] > 0
+    assert seen["sets"] > 0
+    if reads == "simulated":
+        # every case the entry has to cover was met
+        assert seen["no_state"] == 2 and seen["no_set"] >= 1
+        assert seen["extended"] and seen["undefined"] and seen["reverse"]
+        assert seen["sets"] > seen["reverse"]
+
+
+def test_resident_obs_matches_the_per_read_formula():
+    """The fast path's observation stream, one upload and one gather a fill
+    group, against the per-read formula it replaced (the read's row of
+    the fill input gathered at its guarded events, times a, plus b, both
+    f32, then f16), bit for bit: reads of two fill groups as wide as those
+    of 3 kb and 9 kb reads, interleaved in read order."""
+    import torch
+    from dnascent_tpu_torch.pipeline import eventalign as tea
+
+    rng = np.random.default_rng(9)
+    widths = (6730, 20307)
+    groups = [torch.from_numpy(rng.normal(0.0, 1.2, (3, e)).astype(
+        np.float32)) for e in widths]
+
+    class P:
+        pass
+    sets = []
+    for i in range(5):
+        g = i % 2
+        p = P()
+        p.events_dev, p.events_row = groups[g], i // 2
+        p.scale_q, p.scale = rng.uniform(0.5, 2.0, 2)
+        p.shift_q, p.shift = rng.normal(0.0, 3.0, 2)
+        n = int(rng.integers(widths[g] // 2, widths[g]))
+        g_ev = np.sort(rng.choice(widths[g], n, replace=False)).astype(
+            np.int64)
+        ws = tea._WindowSet(*[np.zeros(1, np.int64)] * 6, g_ev)
+        sets.append((tea._ReadState(p, *[None] * 5), ws))
+    obs = tea._resident_obs(sets, torch.device("cpu"))
+    assert obs.dtype == torch.float16
+    assert obs.shape[0] == sum(ws.g_ev.shape[0] for _, ws in sets)
+    spans = []
+    for st, ws in sets:
+        p, n = st.p, ws.g_ev.shape[0]
+        a = np.float32(p.scale_q / p.scale)
+        b = np.float32((p.shift_q - p.shift) / p.scale)
+        want = (p.events_dev[p.events_row].index_select(
+            0, torch.from_numpy(ws.g_ev)) * float(a) + float(b)).to(
+            torch.float16)
+        got = obs[st.flat_obs_base : st.flat_obs_base + n]
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+        spans.append((st.flat_obs_base, n))
+    # the reads' slices tile the stream, group after group
+    spans.sort()
+    assert [s for s, _ in spans] == list(np.cumsum([0] + [n for _, n in
+                                                          spans])[:-1])
+    assert [st.p.events_dev is groups[0] for st, _ in sorted(
+        sets, key=lambda x: x[0].flat_obs_base)] == [True] * 3 + [False] * 2
 
 
 def test_native_library_builds_outside_the_package():

@@ -29,6 +29,7 @@ WORKER_PARENT = {
     "prep.theilsen": PREP,
     "eventalign.windows": ALIGN, "eventalign.viterbi": ALIGN,
     "eventalign.postprocess": ALIGN,
+    "eventalign.window_build": "eventalign.windows",
     "cnn.pack": CNN, "cnn.forward": CNN,
 }
 # the device waits, and the steps they sit in
@@ -152,6 +153,37 @@ def test_output_equal_with_and_without_a_recorder(runs):
     for rid in plain:
         for a, b in zip(traced[rid], plain[rid]):
             assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), rid
+
+
+def test_window_sets_built_once_and_copied_once_a_fill_group():
+    """Under a recorder, eventalign on a batch of 2 reads and on one of 8
+    reads of one fill group: the native batch entry runs once a batch, in
+    its own ``eventalign.window_build`` span under ``eventalign.windows``,
+    and the ``h2d`` copies under ``eventalign.windows`` are 1 (the rank
+    stream) plus 1 a fill group, whatever the number of reads."""
+    from dnascent_tpu_torch.pipeline.eventalign import run_eventalign
+    from dnascent_tpu_torch.pipeline.prep import prepare_reads
+    from dnascent_tpu_torch.pipeline.source import SimulatedSource
+    torch.set_num_threads(2)
+    pms = synthetic_model_set(DNA_R10)
+    records = list(SimulatedSource(pms, DNA_R10, n_reads=8, length=1500,
+                                   seed=7))
+    timer = StageTimer()
+    for b, recs in enumerate((records[:2], records)):
+        with timer.scope("worker"), timer.span("batch", batch=b):
+            prepped = prepare_reads(recs, pms, DNA_R10, device="cpu")
+            assert len({id(p.events_dev) for p in prepped}) == 1
+            out = run_eventalign(prepped, pms, DNA_R10)
+            assert len(out) == len(recs) and all(
+                r.qc_passed for r in out.values())
+    spans = timer.spans()
+    by_id = {s.sid: s for s in spans}
+
+    def under(name, parent):
+        return [sum(s.name == name and by_id[s.parent].name == parent
+                    and s.batch == b for s in spans) for b in (0, 1)]
+    assert under("eventalign.window_build", "eventalign.windows") == [1, 1]
+    assert under("h2d", "eventalign.windows") == [2, 2]
 
 
 def test_no_recorder_records_nothing_and_reads_no_clock():
