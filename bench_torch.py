@@ -35,7 +35,7 @@ wall-clock budget ``BENCH_BUDGET_S`` (1500 s):
 
 * ``stage_breakdown_unpipelined``: two batches run one at a time
   (pipeline depth 1), the wall of each stage (prep, eventalign, CNN) from
-  detect's stage timer, and ``host_steps``, the host seconds of nine steps
+  detect's stage timer, and ``host_steps``, the host seconds of eight steps
   of those stages, timed by wrapping module attributes for that pass only
   (``host_step_timers``);
 * ``device_profile``: one more pass at the headline depth under
@@ -104,11 +104,11 @@ GATE_SEED = 200
 # attribute wrapped in the module that looks it up at call time
 HOST_STEPS = (
     ("event_detection", "prep", "detect_events"),
-    ("quantile_scaling", "scaling", "estimate_scaling_quantiles"),
+    ("quantile_scaling", "native", "prep_scale_batch"),
     ("fill_rank_gather", "prep", "fill_inputs"),
     ("fill_rank_gather", "prep", "general_fill_inputs"),
-    ("move_decode", "native", "decode_moves"),
-    ("theilsen_pregather", "scaling", "theilsen_pregather"),
+    # the move decode, its QC and the Theil-Sen subsample: one call
+    ("move_decode", "native", "prep_decode_group"),
     ("window_build", "native", "eventalign_batch"),
     ("read_paths", "eventalign", "_read_paths"),
     ("native_postprocess", "native", "process_read_windows"),

@@ -21,11 +21,33 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass
+from functools import cached_property
+from typing import NamedTuple
 
 import numpy as np
 
 from ..config import SubstrateConfig, default_models_dir
 from ..utils.seqtools import kmer2index
+
+
+class PoreTables(NamedTuple):
+    """A pore table's columns as prep's native calls read them, a k-mer
+    rank each: the f64 means of the quantile scaling, and the f32 (mu,
+    inv_sigma, lp_const) of ``ops.banded.prepare_emission_coefficients``
+    over every rank, so that a read's coefficients gathered from them keep
+    their bits."""
+    mean: np.ndarray
+    mu: np.ndarray
+    inv_sigma: np.ndarray
+    lp_const: np.ndarray
+
+    @classmethod
+    def of(cls, pore_model: np.ndarray) -> "PoreTables":
+        """The tables of a (4^k, 2) pore table."""
+        from ..ops.banded import prepare_emission_coefficients
+        return cls(np.ascontiguousarray(pore_model[:, 0], np.float64),
+                   *prepare_emission_coefficients(
+                       np.arange(pore_model.shape[0]), pore_model))
 
 
 @dataclass
@@ -41,6 +63,11 @@ class PoreModelSet:
         """Select between ONT and fitted-unlabelled tables the way the
         ``useFitPoreModel`` flag does (event_handling.cpp:117-124)."""
         return self.unlabelled_model if use_fit else self.pore_model
+
+    @cached_property
+    def pore_tables(self) -> PoreTables:
+        """``PoreTables`` of ``pore_model``, built at first use."""
+        return PoreTables.of(self.pore_model)
 
 
 def _parse_model_tsv(path: str, kmer_len: int, static_stdv: float | None) -> np.ndarray:

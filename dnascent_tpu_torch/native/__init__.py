@@ -2,17 +2,19 @@
 and ``baseline_cpu.cpp``, one shared object).
 
 The port's copies of entries of ``dnascent_tpu/native``, and its own: event
-detection, the chase's move decode, eventalign's batch entry (every
-read's state arrays and fast-mode window chain in one call) and window
-post-processing, seeBreaks' libstdc++-exact bootstrap streams, the
-eventalign table's row formatter (which, unlike the original, refuses
-rather than cuts a row that overflows its buffer, and also writes trainCNN's
-call columns) and the benchmark-only scalar CPU baseline of the detect hot
-path.  The library is built with ``g++`` at first use into
+detection, the chase's move decode, prep's batch entries (every read's
+k-mer ranks and quantile scaling in one call a batch, a fill group's padded
+rows, and a fill group's move decode, banded QC and Theil-Sen subsample in
+one call), eventalign's batch entry (every read's state arrays and
+fast-mode window chain in one call) and window post-processing, seeBreaks'
+libstdc++-exact bootstrap streams, the eventalign table's row formatter
+(which, unlike the original, refuses rather than cuts a row that overflows
+its buffer, and also writes trainCNN's call columns) and the benchmark-only
+scalar CPU baseline of the detect hot path.  The library is built with ``g++`` at first use into
 ``build/torch_native/`` at the repository root (never into the package), and
 rebuilt when either source is newer than the library.  ``available()`` is False
-when it cannot be built or loaded; prep then decodes moves with the numpy
-twin (``ops.banded.decode_moves_host``), while eventalign needs the library.
+when it cannot be built or loaded; prep and eventalign need the library, so
+detect, align and trainCNN then fail at their first batch.
 """
 
 from __future__ import annotations
@@ -98,6 +100,25 @@ def _load():
                 u8p, i64, i64, i64, i64, i64,
                 f64p, f32p, f32p, f32p, f32p, i64p, i64p, i64,
                 i64p, i64, f64p, i64p, f64p,
+            ]
+            i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+            vp = ctypes.c_void_p
+            lib.prep_scale_batch.restype = i64
+            lib.prep_scale_batch.argtypes = [
+                u8p, u8p, i64p, i64, f64p, f64p, i64, i64, i64,
+                i64p, i64p, u8p, f64p, f64p,
+            ]
+            lib.prep_fill_rows.restype = i64
+            lib.prep_fill_rows.argtypes = [
+                f64p, i64p, i64p, i64, f64p, f64p, i64, i64, i64,
+                vp, i64, f32, f32p, vp, vp, i32p, i32p,
+            ]
+            lib.prep_decode_group.restype = i64
+            lib.prep_decode_group.argtypes = [
+                u8p, i64, i64, i32p, i64, i64p, f64p, i64p, i64p,
+                i64p, f32p, i64, f32p, f32p, f32p, i64,
+                dbl, i64, i64, i64, i64,
+                i64p, i64, i64p, u8p, f32p, f32p, i32p, u8p,
             ]
             lib.seebreaks_simulation.restype = None
             lib.seebreaks_simulation.argtypes = [
@@ -262,6 +283,180 @@ def decode_moves(packed: np.ndarray, col: int, best_event: int, n_kmers: int,
     return (pairs[: 2 * m].reshape(-1, 2).copy(), cs[:n_cleaned].copy(),
             cr[:n_cleaned].copy(), float(stats[0]), bool(stats[1]),
             int(stats[2]))
+
+
+# one row a read of prep_scale_batch's ``meta``
+PREP_META = ("basecall_len", "ref_len", "n_events")
+PrepScale = namedtuple("PrepScale", "rq rr too_few shift scale")
+_PREP_ERRORS = {
+    "prep_scale_batch": {-1: "k must lie in 1..31 and n_quantiles be "
+                             "positive"},
+    "prep_decode_group": {-1: "the pairs overflow their buffer"},
+}
+
+
+def _prep_error(name: str, err: int) -> None:
+    if err == -2:
+        raise ValueError(f"{name}: a k-mer rank lies outside the table")
+    if err:
+        raise ValueError(f"{name}: {_PREP_ERRORS[name][err]}")
+
+
+def prep_scale_batch(query: bytes, ref: bytes, meta: np.ndarray,
+                     event_mean: np.ndarray, pore_mean: np.ndarray, k: int,
+                     n_quantiles: int) -> PrepScale:
+    """Every read's k-mer ranks and quantile scaling for a batch in one call:
+    the native twin of ``utils.seqtools.kmer_ranks`` of the basecall and of
+    the reference, then ``ops.scaling.estimate_scaling_quantiles`` of the
+    events against the reference k-mers' model means (undefined k-mers read
+    as rank 0), read by read, bit for bit.  The inputs are concatenated in
+    read order; ``meta`` has one row a read, the columns of ``PREP_META``;
+    ``pore_mean`` is the pore table's mean a k-mer rank, as f64.  Returns
+    the query and reference ranks concatenated in read order (-1 for a k-mer
+    with a base outside ACGT), ``too_few`` for a read with fewer than two
+    events, query k-mers or reference k-mers (shift 0 and scale 1), and each
+    read's shift and scale."""
+    lib = get_lib()
+    meta = np.ascontiguousarray(meta, np.int64).reshape(-1, len(PREP_META))
+    n = meta.shape[0]
+    query = np.frombuffer(query, np.uint8)
+    ref = np.frombuffer(ref, np.uint8)
+    event_mean = np.ascontiguousarray(event_mean, np.float64)
+    if (meta < 0).any() or (query.shape[0], ref.shape[0],
+                            event_mean.shape[0]) != tuple(
+            int(x) for x in meta.sum(axis=0)):
+        raise ValueError("prep_scale_batch: inputs do not match meta")
+    pore_mean = np.ascontiguousarray(pore_mean, np.float64)
+    if pore_mean.ndim != 1:
+        raise ValueError("prep_scale_batch: pore_mean must be one mean a "
+                         "k-mer rank")
+    n_kmers = np.maximum(meta[:, :2] - int(k) + 1, 0).sum(axis=0)
+    rq, rr = (np.empty(int(c), np.int64) for c in n_kmers)
+    too_few = np.empty(n, np.uint8)
+    shift, scale = np.empty(n), np.empty(n)
+    _prep_error("prep_scale_batch", int(lib.prep_scale_batch(
+        query, ref, meta, n, event_mean, pore_mean, pore_mean.shape[0],
+        int(k), int(n_quantiles), rq, rr, too_few, shift, scale)))
+    return PrepScale(rq, rr, too_few.view(np.bool_), shift, scale)
+
+
+def _void(a):
+    return None if a is None else a.ctypes.data_as(ctypes.c_void_p)
+
+
+def _read_offsets(name: str, offsets: np.ndarray, *arrays):
+    """``offsets`` as the prep calls take them, the (reads + 1, columns)
+    starts of each read in ``arrays`` (one a column, concatenated in read
+    order), checked against them, with each read's counts (reads,
+    columns)."""
+    offsets = np.ascontiguousarray(offsets, np.int64)
+    if (offsets.ndim != 2 or offsets.shape[1] != len(arrays)
+            or offsets.shape[0] < 1 or offsets[0].any()
+            or (np.diff(offsets, axis=0) < 0).any()
+            or any(offsets[-1, c] > a.shape[0]
+                   for c, a in enumerate(arrays))):
+        raise ValueError(f"{name}: offsets do not lay out the arrays")
+    return offsets, np.diff(offsets, axis=0)
+
+
+def prep_fill_rows(event_mean: np.ndarray, rq: np.ndarray,
+                   offsets: np.ndarray, shift: np.ndarray,
+                   scale: np.ndarray, B: int, E: int, K: int,
+                   table: np.ndarray | None = None, pad: float = np.inf):
+    """The padded host rows of one fill launch over the reads whose events
+    and query ranks are concatenated at ``offsets`` ((reads + 1, 2) starts
+    of [events, query ranks]), with their ``shift`` and ``scale``.  Returns
+    (scaled (B, E) f32, (mean - shift) / scale and 0 past each read's
+    events; (B, K), with ``table`` its f32 values at the query ranks and
+    ``pad`` past each read's k-mers, else the ranks, -1 past them; n_events
+    and n_kmers (B,) i32).  Undefined k-mers read as rank 0
+    (data_IO.cpp:131); rows from the number of reads on are padding."""
+    lib = get_lib()
+    event_mean = np.ascontiguousarray(event_mean, np.float64)
+    rq = np.ascontiguousarray(rq, np.int64)
+    offsets, counts = _read_offsets("prep_fill_rows", offsets, event_mean,
+                                    rq)
+    n = counts.shape[0]
+    shift = np.ascontiguousarray(shift, np.float64)
+    scale = np.ascontiguousarray(scale, np.float64)
+    if n > min(B, shift.shape[0], scale.shape[0]) or (n and (
+            counts[:, 0].max() > E or counts[:, 1].max() > K)):
+        raise ValueError("prep_fill_rows: the reads do not fit (B, E, K)")
+    scaled = np.empty((B, E), np.float32)
+    if table is None:
+        ranks = out = np.empty((B, K), np.int64)
+        gathered = None
+    else:
+        table = np.ascontiguousarray(table, np.float32)
+        gathered = out = np.empty((B, K), np.float32)
+        ranks = None
+    n_ev, n_km = np.empty(B, np.int32), np.empty(B, np.int32)
+    _prep_error("prep_fill_rows", int(lib.prep_fill_rows(
+        event_mean, rq, offsets, n, shift, scale, int(B), int(E), int(K),
+        _void(table), 0 if table is None else table.shape[0],
+        np.float32(pad), scaled, _void(ranks), _void(gathered), n_ev,
+        n_km)))
+    return scaled, out, n_ev, n_km
+
+
+def prep_decode_group(packed: np.ndarray, best_event: np.ndarray,
+                      offsets: np.ndarray, event_mean: np.ndarray,
+                      rq: np.ndarray, rr: np.ndarray, q2r: np.ndarray,
+                      scaled: np.ndarray, tables, min_avg_emission: float,
+                      max_gap_threshold: int, min_cleaned_events: int,
+                      max_points: int, trim: int, sig: np.ndarray,
+                      mms: np.ndarray, npts: np.ndarray,
+                      passth: np.ndarray):
+    """A fill group's move decode, banded QC and Theil-Sen subsample in one
+    call, after the chase's readback: for read b of the group (its events,
+    query ranks, reference ranks and query_to_ref concatenated at
+    ``offsets``, (reads + 1, 4) starts; column b of ``packed`` (rows, B) and
+    row b of the fill's ``scaled``), ``decode_moves`` with the emission
+    coefficients gathered from the per-k-mer ``tables`` (mu, inv_sigma,
+    lp_const; lp_const -inf for an undefined k-mer), its QC verdict (average
+    log emission, span, largest k-mer gap, cleaned events), and for a
+    passing read its ``ops.scaling.theilsen_pregather`` subsample written
+    into row b of ``sig``, ``mms``, ``npts`` and ``passth`` in place (``sig``
+    and ``mms`` zero beforehand).  Returns (pairs (P, 2) of the group in
+    read order, their (reads + 1) starts, passed (reads,))."""
+    lib = get_lib()
+    event_mean = np.ascontiguousarray(event_mean, np.float64)
+    rq, rr, q2r = (np.ascontiguousarray(a, np.int64) for a in (rq, rr, q2r))
+    offsets, counts = _read_offsets("prep_decode_group", offsets,
+                                    event_mean, rq, rr, q2r)
+    packed = np.ascontiguousarray(packed, np.uint8)
+    best_event = np.ascontiguousarray(best_event, np.int32)
+    scaled = np.ascontiguousarray(scaled, np.float32)
+    n = counts.shape[0]
+    rows_p, B = packed.shape
+    if (n > min(B, scaled.shape[0], best_event.shape[0])
+            or (n and (counts[:, 0].max() > scaled.shape[1]
+                       or (best_event[:n] >= counts[:, 0]).any()))):
+        raise ValueError("prep_decode_group: the moves, best events or "
+                         "scaled rows do not match the group's reads")
+    # a pair moves the event cursor, the k-mer cursor or both, and is one
+    # non-PAD move of four a byte
+    cap = int(np.minimum(4 * rows_p, np.maximum(
+        best_event[:n].astype(np.int64) + 1, 0) + counts[:, 1]).sum())
+    pairs = np.empty((max(cap, 1), 2), np.int64)
+    pair_offs = np.empty(n + 1, np.int64)
+    passed = np.empty(n, np.uint8)
+    mu, inv_sigma, lp_const = (np.ascontiguousarray(t, np.float32)
+                               for t in tables)
+    for a, dt in ((sig, np.float32), (mms, np.float32), (npts, np.int32),
+                  (passth, np.uint8)):
+        if (a.dtype != dt or not a.flags.c_contiguous or a.shape[0] < n
+                or a.shape[1:] != ((max_points,) if a.ndim == 2 else ())):
+            raise ValueError("prep_decode_group: the Theil-Sen rows must be "
+                             "C-contiguous f32, f32, i32, u8, a read's row "
+                             "each, max_points wide")
+    _prep_error("prep_decode_group", int(lib.prep_decode_group(
+        packed, rows_p, B, best_event, n, offsets, event_mean, rq, rr, q2r,
+        scaled, scaled.shape[1],
+        mu, inv_sigma, lp_const, mu.shape[0], float(min_avg_emission),
+        int(max_gap_threshold), int(min_cleaned_events), int(max_points),
+        int(trim), pairs, cap, pair_offs, passed, sig, mms, npts, passth)))
+    return pairs[: int(pair_offs[n])], pair_offs, passed.view(np.bool_)
 
 
 def baseline_detect_read(raw: np.ndarray, rq: np.ndarray, rr: np.ndarray,

@@ -2,7 +2,9 @@
 //
 // The port's copies of entries of dnascent_tpu/native/dnascent_native.cpp,
 // and its own: the scrappie event-detection FSM (prep), the decode of the
-// backtrace chase's packed move stream (prep), eventalign's batch entry
+// backtrace chase's packed move stream (prep), prep's batch entries (k-mer
+// ranks and quantile scaling a batch, a fill group's padded rows, a fill
+// group's move decode, QC and Theil-Sen subsample), eventalign's batch entry
 // (every read's state arrays and fast-mode window chain in one call) and
 // window post-processing, the libstdc++-exact RNG streams of seeBreaks'
 // parity mode, and the eventalign table's row formatter (align, trainCNN).
@@ -438,6 +440,10 @@ int64_t eventalign_batch(
 // before returning.  Returns the number of pairs.
 //
 // stats_out: [avg_log_emission, spanned, max_gap, n_pairs, n_cleaned]
+//
+// Never inlined: prep_decode_group runs this same code a read, so the
+// compiler cannot contract its arithmetic differently there.
+__attribute__((noinline))
 int64_t decode_moves(const uint8_t* packed, int64_t rows, int64_t B,
                      int64_t col, int64_t best_event, int64_t n_kmers,
                      const double* event_means, const float* scaled_events,
@@ -517,6 +523,365 @@ done:
     stats_out[3] = (double)n_pairs;
     stats_out[4] = (double)n_cleaned;
     return m;
+}
+
+// ---------------------------------------------------------------------------
+// Prep's batch entries: every read's k-mer ranks and quantile scaling in one
+// call a batch, a fill group's padded rows, and a fill group's move decode,
+// banded QC and Theil-Sen subsample in one call after the chase's readback
+// ---------------------------------------------------------------------------
+
+// A product rounded on its own.  Under -march=native g++ contracts a * b + c
+// into one fma, where numpy rounds the product first; a call it may not
+// inline keeps the two roundings.
+static __attribute__((noinline)) double mul_rounded(double a, double b) {
+    return a * b;
+}
+
+// numpy's pairwise sum of a contiguous f64 array (pairwise_sum in numpy's
+// loops_utils.h): eight running partial sums combined as
+// ((r0+r1)+(r2+r3))+((r4+r5)+(r6+r7)), then the tail left to right; blocks
+// above 128 split in halves of a multiple of 8.
+static double numpy_sum(const double* a, int64_t n) {
+    if (n < 8) {
+        double res = 0.0;
+        for (int64_t i = 0; i < n; ++i) res += a[i];
+        return res;
+    }
+    if (n <= 128) {
+        double r[8];
+        for (int j = 0; j < 8; ++j) r[j] = a[j];
+        int64_t i = 8;
+        for (; i < n - (n % 8); i += 8)
+            for (int j = 0; j < 8; ++j) r[j] += a[i + j];
+        double res = ((r[0] + r[1]) + (r[2] + r[3]))
+                     + ((r[4] + r[5]) + (r[6] + r[7]));
+        for (; i < n; ++i) res += a[i];
+        return res;
+    }
+    int64_t n2 = n / 2;
+    n2 -= n2 % 8;
+    return numpy_sum(a, n2) + numpy_sum(a + n2, n - n2);
+}
+
+// Reused buffers of quantile_medians.
+struct SelectScratch {
+    std::vector<uint16_t> bucket;
+    std::vector<int32_t> count, count2;
+    std::vector<int16_t> slot;
+    std::vector<int64_t> want, slot_of;
+    std::vector<std::vector<double>> cand;
+};
+
+// quantileMedians (event_handling.cpp:451-475): sorted(v)[(i*n + (i+1)*n)/2]
+// with n = len / nq, for i < nq, as numpy's sort orders v.  A selection, not
+// a sort: a histogram of 4096 equal buckets between the least and the
+// greatest value (the bucket is monotone in the value, so the buckets lie in
+// sorted order) finds each statistic's bucket and its rank there, and
+// nth_element picks it among that bucket's values alone.  Where the buckets
+// cannot be formed (a NaN, an infinity, a range that overflows or is zero),
+// nth_element runs over all of v, NaN last as numpy sorts it.  v is
+// reordered.
+static void quantile_medians(std::vector<double>& v, int64_t nq, double* out,
+                             SelectScratch& sc) {
+    const int64_t len = (int64_t)v.size(), n = len / nq;
+    const auto rank = [n](int64_t i) { return (i * n + (i + 1) * n) / 2; };
+    // four running extremes keep the loop off one dependency chain
+    double lo4[4] = {INFINITY, INFINITY, INFINITY, INFINITY};
+    double hi4[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+    int64_t n_nan = 0, i = 0;
+    for (; i + 4 <= len; i += 4)
+        for (int j = 0; j < 4; ++j) {
+            const double x = v[i + j];
+            n_nan += x != x;
+            lo4[j] = x < lo4[j] ? x : lo4[j];
+            hi4[j] = x > hi4[j] ? x : hi4[j];
+        }
+    for (; i < len; ++i) {
+        const double x = v[i];
+        n_nan += x != x;
+        lo4[0] = x < lo4[0] ? x : lo4[0];
+        hi4[0] = x > hi4[0] ? x : hi4[0];
+    }
+    const double lo = std::min(std::min(lo4[0], lo4[1]),
+                               std::min(lo4[2], lo4[3]));
+    const double hi = std::max(std::max(hi4[0], hi4[1]),
+                               std::max(hi4[2], hi4[3]));
+    const int64_t NB = 4096;
+    const double per = (double)NB / (hi - lo);
+    if (n_nan || !std::isfinite(hi - lo) || !std::isfinite(per)) {
+        const auto nan_last = [](double a, double b) {
+            return a < b || (std::isnan(b) && !std::isnan(a));
+        };
+        auto rest = v.begin();
+        for (int64_t q = 0; q < nq; ++q) {
+            auto nth = v.begin() + rank(q);
+            if (nth >= rest) {
+                std::nth_element(rest, nth, v.end(), nan_last);
+                rest = nth + 1;
+            }
+            out[q] = *nth;
+        }
+        return;
+    }
+    std::vector<uint16_t>& bk = sc.bucket;
+    bk.resize(len);
+    for (int64_t j = 0; j < len; ++j) {
+        const double f = (v[j] - lo) * per;
+        bk[j] = (uint16_t)(f < NB - 1 ? (int64_t)f : NB - 1);
+    }
+    // two counts, so that neighbouring values do not wait on one counter
+    sc.count.assign(NB + 1, 0);
+    sc.count2.assign(NB + 1, 0);
+    int64_t j = 0;
+    for (; j + 2 <= len; j += 2) {
+        ++sc.count[bk[j] + 1];
+        ++sc.count2[bk[j + 1] + 1];
+    }
+    if (j < len) ++sc.count[bk[j] + 1];
+    std::vector<int32_t>& starts = sc.count;
+    for (int64_t b = 0; b < NB; ++b)
+        starts[b + 1] += starts[b] + sc.count2[b + 1];
+    // the statistics' buckets, each gathered once
+    sc.slot.assign(NB, -1);
+    sc.want.clear();
+    sc.slot_of.resize(nq);
+    for (int64_t q = 0, b = 0; q < nq; ++q) {
+        while (starts[b + 1] <= rank(q)) ++b;
+        if (sc.slot[b] < 0) {
+            sc.slot[b] = (int16_t)sc.want.size();
+            sc.want.push_back(b);
+        }
+        sc.slot_of[q] = sc.slot[b];
+    }
+    if (sc.cand.size() < sc.want.size()) sc.cand.resize(sc.want.size());
+    for (size_t w = 0; w < sc.want.size(); ++w) {
+        sc.cand[w].clear();
+        sc.cand[w].reserve(starts[sc.want[w] + 1] - starts[sc.want[w]]);
+    }
+    for (int64_t k = 0; k < len; ++k) {
+        const int16_t w = sc.slot[bk[k]];
+        if (w >= 0) sc.cand[w].push_back(v[k]);
+    }
+    for (int64_t q = 0; q < nq; ++q) {
+        const int64_t w = sc.slot_of[q];
+        std::vector<double>& c = sc.cand[w];
+        auto nth = c.begin() + (rank(q) - starts[sc.want[w]]);
+        std::nth_element(c.begin(), nth, c.end());
+        out[q] = *nth;
+    }
+}
+
+// The ranks of every k-mer of s (base-4, A=0 T=1 G=2 C=3, either case), -1
+// for a k-mer with a base outside ACGT: utils/seqtools.kmer_ranks.  Returns
+// the count, max(0, len - k + 1).
+static int64_t kmer_ranks_of(const uint8_t* s, int64_t len, int64_t k,
+                             int64_t* out) {
+    static const auto code_of = [] {
+        std::array<int8_t, 256> t{};
+        t.fill(-1);
+        t['A'] = t['a'] = 0; t['T'] = t['t'] = 1;
+        t['G'] = t['g'] = 2; t['C'] = t['c'] = 3;
+        return t;
+    }();
+    const int64_t mask = (int64_t(1) << (2 * k)) - 1;
+    int64_t rank = 0, last_bad = -1 - k;
+    for (int64_t i = 0; i < len; ++i) {
+        int64_t c = code_of[s[i]];
+        if (c < 0) {
+            last_bad = i;
+            c = 0;
+        }
+        rank = ((rank << 2) | c) & mask;
+        if (i >= k - 1) out[i - k + 1] = i - last_bad < k ? -1 : rank;
+    }
+    return len - k + 1 > 0 ? len - k + 1 : 0;
+}
+
+// meta: one row a read of [basecall length, reference length, events].
+// Inputs concatenated in read order: query (the basecalls' bytes), ref (the
+// references' bytes), event_mean; pore_mean is the pore model's mean a
+// k-mer rank, as f64.  Outputs: rq and rr, each read's query and reference
+// k-mer ranks, concatenated in read order; too_few, 1 for a read with fewer
+// than two events, query k-mers or reference k-mers (it gets no scaling);
+// shift and scale, the others' quantile scaling (event_handling.cpp:510-541,
+// undefined reference k-mers read as rank 0, data_IO.cpp:131), as
+// ops/scaling.estimate_scaling_quantiles computes it, bit for bit.  Returns 0,
+// -1 for k outside 1..31 or nq < 1, -2 for a rank outside the pore table.
+int64_t prep_scale_batch(const uint8_t* query, const uint8_t* ref,
+                         const int64_t* meta, int64_t n_reads,
+                         const double* event_mean, const double* pore_mean,
+                         int64_t n_model, int64_t k, int64_t nq,
+                         int64_t* rq_out, int64_t* rr_out, uint8_t* too_few,
+                         double* shift_out, double* scale_out) {
+    if (k < 1 || k > 31 || nq < 1) return -1;
+    int64_t q_o = 0, r_o = 0, ev_o = 0, rq_o = 0, rr_o = 0;
+    std::vector<double> ev, mm, sq(nq), mq(nq), xx(nq), xy(nq);
+    SelectScratch sc;
+    for (int64_t r = 0; r < n_reads; ++r) {
+        const int64_t lq = meta[3 * r], lr = meta[3 * r + 1];
+        const int64_t ne = meta[3 * r + 2];
+        int64_t* rq = rq_out + rq_o;
+        int64_t* rr = rr_out + rr_o;
+        const int64_t nkq = kmer_ranks_of(query + q_o, lq, k, rq);
+        const int64_t nkr = kmer_ranks_of(ref + r_o, lr, k, rr);
+        too_few[r] = ne < 2 || nkq < 2 || nkr < 2;
+        if (!too_few[r]) {
+            ev.assign(event_mean + ev_o, event_mean + ev_o + ne);
+            mm.resize(nkr);
+            for (int64_t i = 0; i < nkr; ++i) {
+                const int64_t rk = rr[i] < 0 ? 0 : rr[i];
+                if (rk >= n_model) return -2;
+                mm[i] = pore_mean[rk];
+            }
+            quantile_medians(ev, nq, sq.data(), sc);
+            quantile_medians(mm, nq, mq.data(), sc);
+            // linear_regression(mq, sq) (event_handling.cpp:478-507)
+            for (int64_t i = 0; i < nq; ++i) {
+                xx[i] = mul_rounded(mq[i], mq[i]);
+                xy[i] = mul_rounded(mq[i], sq[i]);
+            }
+            const double sum_x = numpy_sum(mq.data(), nq);
+            const double sum_x2 = numpy_sum(xx.data(), nq);
+            const double sum_y = numpy_sum(sq.data(), nq);
+            const double sum_xy = numpy_sum(xy.data(), nq);
+            const double dn = (double)nq;
+            const double slope =
+                (mul_rounded(dn, sum_xy) - mul_rounded(sum_x, sum_y))
+                / (mul_rounded(dn, sum_x2) - mul_rounded(sum_x, sum_x));
+            shift_out[r] = (sum_y - mul_rounded(slope, sum_x)) / dn;
+            scale_out[r] = slope;
+        } else {
+            shift_out[r] = 0.0;
+            scale_out[r] = 1.0;
+        }
+        q_o += lq;
+        r_o += lr;
+        ev_o += ne;
+        rq_o += nkq;
+        rr_o += nkr;
+    }
+    return 0;
+}
+
+// The padded rows of one fill launch over its n reads: event_mean and rq
+// are their events and query k-mer ranks concatenated in read order, offs
+// their (n + 1, 2) starts of [events, query k-mer ranks], shift and scale
+// theirs.  Writes scaled
+// (B, E) f32, (mean - shift) / scale and 0 past each read's events; where
+// non-null, ranks (B, K), the query ranks with undefined k-mers read as 0
+// and -1 past each read's k-mers, and gathered (B, K) f32, table at those
+// ranks and pad past them; n_ev and n_km (B,) i32.  Rows from n to B are
+// padding.  Returns 0, or -2 for a rank outside the table.
+int64_t prep_fill_rows(const double* event_mean, const int64_t* rq,
+                       const int64_t* offs, int64_t n,
+                       const double* shift, const double* scale, int64_t B,
+                       int64_t E, int64_t K, const float* table,
+                       int64_t n_table, float pad, float* scaled,
+                       int64_t* ranks, float* gathered, int32_t* n_ev,
+                       int32_t* n_km) {
+    for (int64_t b = 0; b < B; ++b) {
+        int64_t ne = 0, nk = 0;
+        const double* ev = nullptr;
+        const int64_t* q = nullptr;
+        if (b < n) {
+            const int64_t* o = offs + 2 * b;
+            ev = event_mean + o[0];
+            ne = o[2] - o[0];
+            q = rq + o[1];
+            nk = o[3] - o[1];
+        }
+        float* s = scaled + b * E;
+        for (int64_t j = 0; j < ne; ++j)
+            s[j] = (float)((ev[j] - shift[b]) / scale[b]);
+        std::fill(s + ne, s + E, 0.0f);
+        for (int64_t j = 0; j < K; ++j) {
+            const int64_t rk = j < nk ? (q[j] < 0 ? 0 : q[j]) : -1;
+            if (ranks) ranks[b * K + j] = rk;
+            if (gathered) {
+                if (rk >= n_table) return -2;
+                gathered[b * K + j] = rk < 0 ? pad : table[rk];
+            }
+        }
+        n_ev[b] = (int32_t)ne;
+        n_km[b] = (int32_t)nk;
+    }
+    return 0;
+}
+
+// One fill group after the chase's readback: for each of its n reads
+// (event_mean, rq, rr and q2r concatenated in read order, offs their
+// (n + 1, 4) starts of [events, query k-mer ranks, reference k-mer ranks,
+// query_to_ref]), the read's emission coefficients gathered from the
+// per-k-mer tables (t_lpc -inf for an undefined k-mer), the decode_moves of
+// its column of packed (rows_p, B) with the fill's scaled row (scaled, row
+// stride E), and the banded QC (event_handling.cpp; the four tests of
+// pipeline/prep.py).  Writes the pairs concatenated at pair_offs (n + 1),
+// passed (n), and for a passing read its Theil-Sen stride subsample
+// (ops/scaling.theilsen_pregather) into row b of sig and mms (max_points
+// wide, zero beforehand), npts and passth.  Returns 0, -1 when the pairs
+// overflow pairs_cap, -2 for a rank outside the tables.
+int64_t prep_decode_group(
+    const uint8_t* packed, int64_t rows_p, int64_t B, const int32_t* best_e,
+    int64_t n, const int64_t* offs,
+    const double* event_mean, const int64_t* rq, const int64_t* rr,
+    const int64_t* q2r, const float* scaled, int64_t E, const float* t_mu,
+    const float* t_inv, const float* t_lpc, int64_t n_model,
+    double min_avg_emission, int64_t max_gap_threshold,
+    int64_t min_cleaned_events, int64_t max_points, int64_t trim,
+    int64_t* pairs_out, int64_t pairs_cap,
+    int64_t* pair_offs, uint8_t* passed, float* sig, float* mms,
+    int32_t* npts, uint8_t* passth) {
+    std::vector<float> mu, inv, lpc;
+    std::vector<int64_t> q2r_k, cr(rows_p * 4 + 1);
+    std::vector<double> cs(rows_p * 4 + 1);
+    double stats[5];
+    int64_t off = 0;
+    pair_offs[0] = 0;
+    for (int64_t b = 0; b < n; ++b) {
+        const int64_t* o = offs + 4 * b;
+        const int64_t nk = o[5] - o[1], nr = o[6] - o[2];
+        const int64_t nq2r = o[7] - o[3];
+        mu.resize(nk); inv.resize(nk); lpc.resize(nk); q2r_k.resize(nk);
+        for (int64_t j = 0; j < nk; ++j) {
+            const int64_t rk = rq[o[1] + j], s = rk < 0 ? 0 : rk;
+            if (s >= n_model) return -2;
+            mu[j] = t_mu[s];
+            inv[j] = t_inv[s];
+            lpc[j] = rk < 0 ? -INFINITY : t_lpc[s];
+            q2r_k[j] = j < nq2r ? q2r[o[3] + j] : -1;
+        }
+        const int64_t m = decode_moves(
+            packed, rows_p, B, b, best_e[b], nk, event_mean + o[0],
+            scaled + b * E, mu.data(), inv.data(), lpc.data(), q2r_k.data(),
+            rr + o[2], nr, pairs_out + 2 * off, pairs_cap - off, cs.data(),
+            cr.data(), stats);
+        if (m != (int64_t)stats[3]) return -1;
+        off += m;
+        pair_offs[b + 1] = off;
+        const int64_t n_cleaned = (int64_t)stats[4];
+        passed[b] = stats[0] >= min_avg_emission && stats[1] != 0.0
+                    && (int64_t)stats[2] <= max_gap_threshold
+                    && n_cleaned >= min_cleaned_events;
+        if (!passed[b]) continue;
+        // idx = trim + skip * j, clipped (event_handling.cpp:63-65)
+        const int64_t eff = n_cleaned - 2 * trim;
+        const int64_t skip = eff > max_points ? eff / max_points : 1;
+        const int64_t num = eff < max_points ? eff : max_points;
+        if (n_cleaned > 0 && num > 0) {
+            for (int64_t j = 0; j < max_points; ++j) {
+                int64_t idx = trim + skip * j;
+                idx = idx < 0 ? 0 : (idx > n_cleaned - 1 ? n_cleaned - 1 : idx);
+                const int64_t rk = cr[idx] < 0 ? 0 : cr[idx];
+                if (rk >= n_model) return -2;
+                sig[b * max_points + j] = (float)cs[idx];
+                mms[b * max_points + j] = t_mu[rk];
+            }
+        }
+        npts[b] = (int32_t)(num > 0 ? num : 0);
+        passth[b] = n_cleaned < max_points;
+    }
+    return 0;
 }
 
 // ---------------------------------------------------------------------------

@@ -7,12 +7,18 @@ native move decode and QC on the host, then the batched Theil-Sen
 refinement on the device.  The fill is kernel A for a static-stdv pore
 model (the shipping case) and kernel E for one whose stdv varies per k-mer
 (the fit-stdv tables trainGMM output feeds).
+
+The host steps are whole-batch native calls that release the interpreter
+lock: k-mer ranks and quantile scaling one call a batch, each fill group's
+padded rows one call, and each fill group's move decode, QC and Theil-Sen
+subsample one call after the chase's readback.
 """
 
 from __future__ import annotations
 
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
+from operator import attrgetter
 from typing import Optional
 
 import numpy as np
@@ -20,10 +26,9 @@ import torch
 
 from .. import device as devmod, native
 from ..config import DNA_R10, SubstrateConfig
-from ..io.poremodel import PoreModelSet
+from ..io.poremodel import PoreModelSet, PoreTables
 from ..ops import banded, banded_cuda, scaling
 from ..utils.progress import span
-from ..utils.seqtools import kmer_ranks
 from .source import ReadRecord
 
 MAX_FILL_B = 32          # reads per fill launch
@@ -76,6 +81,13 @@ def static_stdv_scalars(pore_model: np.ndarray):
     return 1.0 / s0, float(banded.LOG_INV_SQRT_2PI - np.log(s0))
 
 
+def pore_tables(models: PoreModelSet) -> PoreTables:
+    """The model set's cached ``pore_tables``; built anew for a model set
+    without them (the JAX package's)."""
+    tables = getattr(models, "pore_tables", None)
+    return PoreTables.of(models.pore_model) if tables is None else tables
+
+
 def detect_events(records: list[ReadRecord], cfg: SubstrateConfig):
     """Native event detection + merge per read: (mean, raw_start, raw_end,
     n_raw_events)."""
@@ -90,66 +102,80 @@ def quantile_scaled_reads(records: list[ReadRecord], models: PoreModelSet,
                           cfg: SubstrateConfig) -> list[PreparedRead]:
     """Events, k-mer ranks and quantile scaling (event_handling.cpp:594-595)
     for a batch; reads too short to align carry ``too_few_events``."""
-    k = cfg.kmer_len
-    prepped = []
     with span("prep.event_detection"):
         events = detect_events(records, cfg)
     with span("prep.scaling"):
-        for rec, (mean, rs, re_, et_n) in zip(records, events):
-            rq = kmer_ranks(rec.basecall, k)
-            rr = kmer_ranks(rec.reference_seq, k)
-            p = PreparedRead(rec, mean, rs, re_, et_n, rq, rr)
-            if mean.shape[0] < 2 or rq.shape[0] < 2 or rr.shape[0] < 2:
+        if not records:
+            return []
+        k = cfg.kmer_len
+        lens = np.array([(len(r.basecall), len(r.reference_seq),
+                          ev[0].shape[0]) for r, ev in zip(records, events)],
+                        np.int64)
+        mean = np.concatenate([ev[0] for ev in events])
+        with span("prep.scale_build"):
+            s = native.prep_scale_batch(
+                "".join(r.basecall for r in records).encode("ascii"),
+                "".join(r.reference_seq for r in records).encode("ascii"),
+                lens, mean, pore_tables(models).mean, k,
+                cfg.scaling.n_quantiles)
+        # each read's starts of its events, query and reference k-mers
+        starts = np.zeros((len(records) + 1, 3), np.int64)
+        np.cumsum(np.stack([lens[:, 2], np.maximum(lens[:, 0] - k + 1, 0),
+                            np.maximum(lens[:, 1] - k + 1, 0)], 1),
+                  axis=0, out=starts[1:])
+        offs = starts.tolist()
+        prepped = []
+        for rec, (_, rs, re_, et_n), (e0, q0, r0), (e1, q1, r1), few, \
+                shift, scale in zip(records, events, offs, offs[1:],
+                                    s.too_few.tolist(), s.shift.tolist(),
+                                    s.scale.tolist()):
+            p = PreparedRead(rec, mean[e0:e1], rs, re_, et_n, s.rq[q0:q1],
+                             s.rr[r0:r1])
+            if few:
                 p.qc_fail_reason = "too_few_events"
             else:
-                # undefined k-mers take the A-substituted rank
-                # (data_IO.cpp:131)
-                safe_rr = np.where(rr < 0, 0, rr)
-                p.shift, p.scale = scaling.estimate_scaling_quantiles(
-                    mean, models.pore_model[safe_rr, 0].astype(np.float64),
-                    cfg.scaling)
+                p.shift, p.scale = shift, scale
             prepped.append(p)
     return prepped
 
 
-def _ranked_group(group: list[PreparedRead]):
-    """(scaled events (B, E) f32, k-mer ranks (B, K) i64 with -1 past each
-    read's k-mers, n_events (B,) i32, n_kmers (B,) i32), E and K the
-    group's longest read."""
-    B = devmod.pad_rows(len(group))
-    E = max(p.n_events for p in group)
-    K = max(p.n_kmers for p in group)
-    scaled = np.zeros((B, E), dtype=np.float32)
-    # undefined (N-containing) k-mers take the A-substituted rank
-    # (data_IO.cpp:131); -1 marks the padding past each read's k-mers
-    ranks = np.full((B, K), -1, dtype=np.int64)
-    n_ev = np.zeros(B, dtype=np.int32)
-    n_km = np.zeros(B, dtype=np.int32)
-    for b, p in enumerate(group):
-        ne, nk = p.n_events, p.n_kmers
-        scaled[b, :ne] = (p.event_mean - p.shift) / p.scale
-        ranks[b, :nk] = np.where(p.kmer_ranks_query < 0, 0,
-                                 p.kmer_ranks_query)
-        n_ev[b], n_km[b] = ne, nk
-    return scaled, ranks, n_ev, n_km
+def _group_arrays(group: list[PreparedRead], *fields: str):
+    """The group's reads' ``fields`` (attribute paths of a read), each
+    concatenated in read order, and their (reads + 1, fields) starts, as
+    prep's native group calls take them."""
+    cols = [list(map(attrgetter(f), group)) for f in fields]
+    offsets = np.zeros((len(group) + 1, len(fields)), np.int64)
+    offsets[1:] = np.cumsum([[a.shape[0] for a in c] for c in cols],
+                            axis=1).T
+    return [np.concatenate(c) for c in cols], offsets
+
+
+def _fill_rows(group: list[PreparedRead], table=None):
+    """``native.prep_fill_rows`` of the group, its E and K the group's
+    longest read, with ``table`` its values at the ranks."""
+    (mean, rq), offsets = _group_arrays(group, "event_mean",
+                                        "kmer_ranks_query")
+    n = len(group)
+    E, K = (int(x) for x in np.diff(offsets, axis=0).max(axis=0))
+    return native.prep_fill_rows(
+        mean, rq, offsets,
+        np.fromiter((p.shift for p in group), np.float64, n),
+        np.fromiter((p.scale for p in group), np.float64, n),
+        devmod.pad_rows(n), E, K, table)
 
 
 def fill_inputs(group: list[PreparedRead], models: PoreModelSet):
-    """Host arrays of one static-stdv fill launch (kernel A): (scaled
-    events (B, E) f32, mu (B, K) f32 with +inf past each read's k-mers,
-    n_events (B,) i32, n_kmers (B,) i32)."""
-    scaled, ranks, n_ev, n_km = _ranked_group(group)
-    mu = np.where(ranks < 0, np.float32(np.inf),
-                  models.pore_model[np.maximum(ranks, 0), 0]).astype(
-                      np.float32)
-    return scaled, mu, n_ev, n_km
+    """Host arrays of one static-stdv fill launch (kernel A), one native
+    call: (scaled events (B, E) f32, mu (B, K) f32 with +inf past each
+    read's k-mers, n_events (B,) i32, n_kmers (B,) i32)."""
+    return _fill_rows(group, pore_tables(models).mu)
 
 
 def general_fill_inputs(group: list[PreparedRead], models: PoreModelSet):
     """Host arrays of one per-k-mer-stdv fill launch (kernel E): (scaled
     events, mu, inv_sigma, lp_const (B, K) f32 with -inf lp_const past each
     read's k-mers, n_events, n_kmers)."""
-    scaled, ranks, n_ev, n_km = _ranked_group(group)
+    scaled, ranks, n_ev, n_km = _fill_rows(group)
     mu, inv_sigma, lp_const = banded.prepare_emission_coefficients(
         ranks, models.pore_model)
     return scaled, mu, inv_sigma, lp_const, n_ev, n_km
@@ -185,9 +211,7 @@ def prepare_reads(records: list[ReadRecord], models: PoreModelSet,
     else:
         build, fill = fill_inputs, banded_cuda.banded_fill_lean
         fill_kw.update(inv_sigma=static[0], lp_const=static[1])
-    cleaned: dict[int, tuple[np.ndarray, np.ndarray]] = {}
-    decode = (native.decode_moves if native.available()
-              else banded.decode_moves_host)
+    mp = cfg.scaling.theilsen_max_points
 
     # dispatch every group's fill + chase, then collect
     dispatched = []
@@ -205,48 +229,54 @@ def prepare_reads(records: list[ReadRecord], models: PoreModelSet,
                                             bandwidth=bw)
         dispatched.append((group, scaled, moves, best_e))
 
+    order = []
     with span("prep.banded_decode"):
+        # Theil-Sen's subsample a read, written by the decode in fill-group
+        # order
+        n_live = len(live)
+        ts = (np.zeros((n_live, mp), np.float32),
+              np.zeros((n_live, mp), np.float32),
+              np.zeros(n_live, np.int32), np.ones(n_live, np.uint8))
+        tables = pore_tables(models)[1:]
         for group, scaled, moves, best_e in dispatched:
             moves = devmod.to_host(moves)
             best_e = devmod.to_host(best_e)
-            for b, p in enumerate(group):
-                ne, nk = p.n_events, p.n_kmers
-                q2r = np.full(nk, -1, dtype=np.int64)
-                q2r_src = p.record.query_to_ref[:nk]
-                q2r[: q2r_src.shape[0]] = q2r_src
-                mu_b, inv_b, lpc_b = banded.prepare_emission_coefficients(
-                    p.kmer_ranks_query[None, :], models.pore_model)
-                pairs, cs, cr, avg_em, spanned, max_gap = decode(
-                    moves, b, int(best_e[b]), nk, p.event_mean,
-                    scaled[b, :ne], mu_b[0], inv_b[0], lpc_b[0], q2r,
-                    p.kmer_ranks_ref)
-                if (avg_em >= cfg.banded.min_average_log_emission
-                        and spanned
-                        and max_gap <= cfg.banded.max_gap_threshold
-                        and cs.shape[0] >= cfg.banded.min_cleaned_events):
-                    p.event_alignment = pairs
+            rows = slice(len(order), len(order) + len(group))
+            order += group
+            with span("prep.decode_build"):
+                (mean, rq, rr, q2r), offsets = _group_arrays(
+                    group, "event_mean", "kmer_ranks_query",
+                    "kmer_ranks_ref", "record.query_to_ref")
+                pairs, offs, ok = native.prep_decode_group(
+                    moves, best_e, offsets, mean, rq, rr, q2r, scaled,
+                    tables, cfg.banded.min_average_log_emission,
+                    cfg.banded.max_gap_threshold,
+                    cfg.banded.min_cleaned_events, mp,
+                    cfg.scaling.theilsen_trim, *(a[rows] for a in ts))
+            offs = offs.tolist()
+            for p, good, o0, o1 in zip(group, ok.tolist(), offs, offs[1:]):
+                if good:
+                    p.event_alignment = pairs[o0:o1]
                 else:
                     p.qc_fail_reason = "banded_qc"
-                cleaned[id(p)] = (cs, cr)
 
     # Theil-Sen refinement, batched on the device over host-subsampled points
-    live2 = [p for p in live if p.passed]
+    keep = [i for i, p in enumerate(order) if p.passed]
+    live2 = [order[i] for i in keep]
     if live2:
         with span("prep.theilsen"):
-            mp = cfg.scaling.theilsen_max_points
-            B = devmod.pad_rows(len(live2))
+            n2 = len(live2)
+            B = devmod.pad_rows(n2)
             sig = np.zeros((B, mp), dtype=np.float32)
             mms = np.zeros((B, mp), dtype=np.float32)
             npts = np.zeros(B, dtype=np.int32)
             passth = np.ones(B, dtype=bool)
             sh = np.zeros(B, dtype=np.float32)
             sc = np.ones(B, dtype=np.float32)
-            for b, p in enumerate(live2):
-                cs, cr = cleaned[id(p)]
-                sig[b], mms[b], npts[b], passth[b] = \
-                    scaling.theilsen_pregather(cs, cr, models.pore_model, mp,
-                                               cfg.scaling.theilsen_trim)
-                sh[b], sc[b] = p.shift, p.scale
+            for out, rows in zip((sig, mms, npts, passth), ts):
+                out[:n2] = rows[keep]
+            sh[:n2] = np.fromiter((p.shift for p in live2), np.float64, n2)
+            sc[:n2] = np.fromiter((p.scale for p in live2), np.float64, n2)
             new_sh, new_sc = scaling.theilsen_refine_pregathered(
                 *(devmod.put_rows(a, dev)
                   for a in (sig, mms, npts, passth, sh, sc)))

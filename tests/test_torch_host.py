@@ -211,6 +211,513 @@ def test_native_decode_moves_equal():
                 assert x == y
 
 
+# ---------------------------------------------------------------------------
+# Prep's native batch entries against the JAX package's per-read steps
+# ---------------------------------------------------------------------------
+
+def _sim_records(port_models, n, length, seed, reverse=False):
+    from dnascent_tpu_torch.pipeline.source import SimulatedSource
+    return list(SimulatedSource(port_models, DNA_R10, n_reads=n,
+                                length=length, seed=seed, reverse=reverse))
+
+
+def _golden_records(dataset):
+    from dnascent_tpu_torch.io.fasta import import_reference
+    from dnascent_tpu_torch.io.index_io import parse_index
+    from dnascent_tpu_torch.pipeline.source import BamSignalSource
+    return list(BamSignalSource(dataset.bam,
+                                import_reference(dataset.reference_fa),
+                                parse_index(dataset.index), min_length=1000))
+
+
+def _odd_base_records(port_models):
+    """Simulated reads with N runs and lowercase stretches in the basecall,
+    the reference or both, and a read shorter than a k-mer."""
+    rng = np.random.default_rng(41)
+    out = []
+    for i, rec in enumerate(_sim_records(port_models, 4, 1200, 60,
+                                         reverse=True)):
+        q, r = (np.array(list(s)) for s in (rec.basecall, rec.reference_seq))
+        for arr, on in ((q, i != 1), (r, i != 0)):
+            if not on:
+                continue
+            for s0 in rng.integers(0, arr.shape[0] - 40, 3):
+                arr[s0 : s0 + rng.integers(1, 12)] = "N"
+            s0 = int(rng.integers(0, arr.shape[0] - 200))
+            arr[s0 : s0 + 150] = np.char.lower(arr[s0 : s0 + 150])
+        out.append(dataclasses.replace(rec, basecall="".join(q),
+                                       reference_seq="".join(r)))
+    out.append(dataclasses.replace(out[0], basecall="ACGTACGT",
+                                   reference_seq="ACGTACGTA"))
+    return out
+
+
+def _jax_scaling(models, basecall, reference, mean):
+    """(query ranks, reference ranks, too few, shift, scale) of one read by
+    the JAX package's ``kmer_ranks`` and ``estimate_scaling_quantiles``."""
+    from dnascent_tpu.ops.reference import estimate_scaling_quantiles
+    from dnascent_tpu.utils.seqtools import kmer_ranks
+    k = JAX_R10.kmer_len
+    rq, rr = kmer_ranks(basecall, k), kmer_ranks(reference, k)
+    if min(mean.shape[0], rq.shape[0], rr.shape[0]) < 2:
+        return rq, rr, True, 0.0, 1.0
+    safe = np.where(rr < 0, 0, rr)
+    shift, scale = estimate_scaling_quantiles(
+        mean, models.pore_model[safe, 0].astype(np.float64), JAX_R10.scaling)
+    return rq, rr, False, shift, scale
+
+
+def _scale_batch(port_models, basecalls, references, means):
+    from dnascent_tpu_torch import native as tn
+    lens = np.array([(len(q), len(r), m.shape[0])
+                     for q, r, m in zip(basecalls, references, means)],
+                    np.int64)
+    return tn.prep_scale_batch(
+        "".join(basecalls).encode("ascii"),
+        "".join(references).encode("ascii"), lens, np.concatenate(means),
+        port_models.pore_model[:, 0].astype(np.float64), DNA_R10.kmer_len,
+        DNA_R10.scaling.n_quantiles)
+
+
+def _bits(x) -> bytes:
+    return np.float64(x).tobytes()
+
+
+@pytest.mark.parametrize("reads", ["golden", "simulated", "odd_bases"])
+def test_prep_scale_batch_matches_jax(dataset, models, port_models, reads):
+    """The scaling call over a batch against the JAX package's
+    ``kmer_ranks`` of the basecall and the reference and
+    ``estimate_scaling_quantiles``, read by read: ranks, the too-few verdict
+    and the bits of shift and scale.  The golden reads; simulated reads of
+    both strands; reads with N and lowercase bases, one shorter than a
+    k-mer and one with 6 events (fewer than the ten quantiles)."""
+    from dnascent_tpu_torch import native as tn
+    ed = DNA_R10.events
+    if reads == "golden":
+        records = _golden_records(dataset)
+    elif reads == "simulated":
+        records = (_sim_records(port_models, 3, 2500, 70)
+                   + _sim_records(port_models, 3, 2500, 80, reverse=True))
+    else:
+        records = _odd_base_records(port_models)
+    means = [tn.event_detect(r.raw, ed.window_length1, ed.window_length2,
+                             ed.threshold1, ed.threshold2, ed.peak_height)[0]
+             for r in records]
+    if reads == "odd_bases":
+        means[2] = means[2][:6]
+    qs = [r.basecall for r in records]
+    rs = [r.reference_seq for r in records]
+    s = _scale_batch(port_models, qs, rs, means)
+    q0 = r0 = 0
+    seen = set()
+    for i, (q, r, mean) in enumerate(zip(qs, rs, means)):
+        rq, rr, few, shift, scale = _jax_scaling(models, q, r, mean)
+        np.testing.assert_array_equal(s.rq[q0 : q0 + rq.shape[0]], rq)
+        np.testing.assert_array_equal(s.rr[r0 : r0 + rr.shape[0]], rr)
+        q0, r0 = q0 + rq.shape[0], r0 + rr.shape[0]
+        assert bool(s.too_few[i]) == few, i
+        assert _bits(s.shift[i]) == _bits(shift), (i, s.shift[i], shift)
+        assert _bits(s.scale[i]) == _bits(scale), (i, s.scale[i], scale)
+        seen |= {("few", few), ("undefined", bool((rq < 0).any())),
+                 ("short", mean.shape[0] < 10)}
+    assert (q0, r0) == (s.rq.shape[0], s.rr.shape[0])
+    assert s.rq.dtype == s.rr.dtype == np.int64
+    if reads == "odd_bases":
+        assert {("few", True), ("undefined", True), ("short", True)} <= seen
+        assert any(c.islower() for c in "".join(qs + rs))
+
+
+def test_prep_scale_batch_summation_order(models, port_models):
+    """10,000 reads of random event means (their magnitudes spread over
+    six decades) and random references: shift and scale bit-equal to the
+    JAX package's, whose regression sums ten values in numpy's pairwise
+    order; a left-to-right sum would differ in many of them.  Then event
+    means the selection's buckets cannot hold: a NaN, infinities, one
+    value repeated, a range past the largest double, and a huge outlier."""
+    rng = np.random.default_rng(97)
+    n = 10_000
+    k = DNA_R10.kmer_len
+    refs = ["".join(rng.choice(list("ACGT"), int(m)))
+            for m in rng.integers(k + 12, k + 60, n)]
+    means = [rng.normal(90.0, 16.0, int(m)) * 10.0 ** rng.uniform(-3, 3)
+             for m in rng.integers(10, 90, n)]
+    odd = [rng.normal(90.0, 16.0, 40) for _ in range(6)]
+    odd[0][[3, 17]] = np.nan
+    odd[1][5], odd[1][9] = np.inf, -np.inf
+    odd[2][:] = 87.5
+    odd[3][[2, 30]] = -1.5e308, 1.5e308
+    odd[4][11] = 1e300
+    odd[5][[0, 1, 2, 3]] = np.inf
+    for i, mean in enumerate(odd):
+        ref = refs[i]
+        s = _scale_batch(port_models, [ref], [ref], [mean])
+        _, _, few, shift, scale = _jax_scaling(models, ref, ref, mean)
+        assert not few
+        assert _bits(s.shift[0]) == _bits(shift), (i, s.shift[0], shift)
+        assert _bits(s.scale[0]) == _bits(scale), (i, s.scale[0], scale)
+    s = _scale_batch(port_models, refs, refs, means)
+    naive = 0
+    for i, (ref, mean) in enumerate(zip(refs, means)):
+        _, rr, few, shift, scale = _jax_scaling(models, ref, ref, mean)
+        assert not few and not s.too_few[i]
+        assert _bits(s.shift[i]) == _bits(shift), i
+        assert _bits(s.scale[i]) == _bits(scale), i
+        # the same regression with every sum taken left to right
+        from dnascent_tpu.ops.reference import quantile_medians
+        x = quantile_medians(models.pore_model[rr, 0].astype(np.float64), 10)
+        y = quantile_medians(mean, 10)
+        sx, sy = sum(x.tolist()), sum(y.tolist())
+        sxy, sxx = sum((x * y).tolist()), sum((x * x).tolist())
+        naive += ((10 * sxy - sx * sy) / (10 * sxx - sx * sx)) != scale
+    assert naive > n // 10
+
+
+@pytest.fixture(scope="module", params=["golden", "painted", "passthrough",
+                                        "fit_stdv"])
+def prep_case(request, dataset, port_models):
+    """(case, records, port models, JAX models, cfg, the JAX package's
+    cfg) of a prep run: the golden reads; painted reads whose signal is
+    drawn from a scrambled table over 10-100 % of the read (the longer ones
+    fail banded QC) and a 3 kb read in a second fill group, ordered so that
+    the reads that pass come in fill-group order otherwise than in the
+    batch; simulated reads of 900 and 1500 bp under a minimum of 100
+    cleaned events, so the short ones pass with fewer
+    cleaned events than Theil-Sen's 1000 points (passthrough); and
+    simulated reads against a per-k-mer-stdv table (kernel E)."""
+    from dnascent_tpu.io.poremodel import synthetic_model_set as jax_set
+    from dnascent_tpu_torch.testing.painted import (
+        edu_model, labels_from_tracks, painted_read)
+    jmodels, pms, cfg, jcfg = jax_set(JAX_R10), port_models, DNA_R10, JAX_R10
+    case = request.param
+    if case == "golden":
+        records = _golden_records(dataset)
+    elif case == "painted":
+        scrambled = pms.pore_model[np.random.default_rng(0).permutation(
+            pms.pore_model.shape[0])]
+        short = [painted_read(pms, scrambled, 1500, labels_from_tracks(
+            1500, [("EdU", 300, 300 + int(1200 * f))]), 40 + i, f"p{i}")
+            for i, f in enumerate((0.1, 0.8, 1.0))]
+        long = painted_read(pms, edu_model(pms), 3000, labels_from_tracks(
+            3000, [("BrdU", 500, 1500), ("EdU", 1500, 2500)]), 50, "p3")
+        # the two reads that pass banded QC come in the other order in
+        # the fill groups
+        records = [short[1], long, short[0], short[2]]
+    elif case == "passthrough":
+        records = (_sim_records(pms, 2, 900, 90)
+                   + _sim_records(pms, 1, 1500, 95, reverse=True))
+        cfg, jcfg = (dataclasses.replace(c, banded=dataclasses.replace(
+            c.banded, min_cleaned_events=100)) for c in (cfg, jcfg))
+    else:
+        records = _sim_records(pms, 2, 1200, 99)
+        pms = dataclasses.replace(pms, pore_model=pms.unlabelled_model)
+        jmodels = dataclasses.replace(jmodels,
+                                      pore_model=jmodels.unlabelled_model)
+    return case, records, pms, jmodels, cfg, jcfg
+
+
+def _prep(records, pms, cfg):
+    """``prepare_reads`` on the CPU, with each decode call recorded with its
+    result, and the fill groups, the decode calls' reads, in order."""
+    import torch
+    from dnascent_tpu_torch import native as tn
+    from dnascent_tpu_torch.pipeline import prep as tprep
+
+    torch.set_num_threads(2)
+    calls, groups = [], []
+    decode, fill_groups = tn.prep_decode_group, tprep._fill_groups
+
+    def rec(*a, **kw):
+        out = decode(*a, **kw)
+        calls.append((a, kw, out))
+        return out
+
+    def rec_groups(live):
+        out = fill_groups(live)
+        groups.extend(out)
+        return out
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tn, "prep_decode_group", rec)
+        mp.setattr(tprep, "_fill_groups", rec_groups)
+        out = tprep.prepare_reads(records, pms, cfg, device="cpu")
+    return out, calls, groups
+
+
+def test_prep_decode_group_matches_jax(prep_case):
+    """Each fill group's decode call against the JAX package's per-read
+    ``prepare_emission_coefficients``, ``decode_moves`` and
+    ``theilsen_pregather`` and prep's four banded QC tests on the same
+    inputs: pairs, verdict, and each passing read's Theil-Sen row (points,
+    model means, count, passthrough) bit for bit."""
+    import inspect
+    from dnascent_tpu import native as jn
+    from dnascent_tpu.ops import banded as jbanded
+    from dnascent_tpu.ops import scaling as jscaling
+    from dnascent_tpu_torch import native as tn
+
+    case, records, pms, jmodels, cfg, _ = prep_case
+    _, calls, _ = _prep(records, pms, cfg)
+    assert len(calls) == (2 if case == "painted" else 1)
+    seen = dict(passed=0, failed=0, passth=0)
+    for a, kw, (pairs, offs, ok) in calls:
+        arg = inspect.signature(tn.prep_decode_group).bind(*a, **kw).arguments
+        o = arg["offsets"]
+        best_e = arg["best_event"]
+        for b in range(o.shape[0] - 1):
+            (e0, q0, r0, t0), (e1, q1, r1, t1) = o[b], o[b + 1]
+            nk = q1 - q0
+            mu, inv, lpc = jbanded.prepare_emission_coefficients(
+                arg["rq"][None, q0:q1], jmodels.pore_model)
+            q2r = np.full(nk, -1, np.int64)
+            src = arg["q2r"][t0:t1][:nk]
+            q2r[: src.shape[0]] = src
+            jp, cs, cr, avg, spanned, gap = jn.decode_moves(
+                arg["packed"], b, int(best_e[b]), nk,
+                arg["event_mean"][e0:e1], arg["scaled"][b, : e1 - e0],
+                mu[0], inv[0], lpc[0], q2r, arg["rr"][r0:r1])
+            want = bool(avg >= cfg.banded.min_average_log_emission
+                        and spanned and gap <= cfg.banded.max_gap_threshold
+                        and cs.shape[0] >= cfg.banded.min_cleaned_events)
+            assert bool(ok[b]) == want, (case, b)
+            np.testing.assert_array_equal(pairs[offs[b] : offs[b + 1]], jp)
+            if not want:
+                assert not arg["sig"][b].any()
+                seen["failed"] += 1
+                continue
+            sig, y, npts, passth = jscaling.theilsen_pregather(
+                cs, cr, jmodels.pore_model, cfg.scaling.theilsen_max_points,
+                cfg.scaling.theilsen_trim)
+            assert arg["sig"][b].tobytes() == sig.tobytes()
+            assert arg["mms"][b].tobytes() == y.tobytes()
+            assert (arg["npts"][b], bool(arg["passth"][b])) == (
+                npts, passth)
+            seen["passed"] += 1
+            seen["passth"] += int(passth)
+    assert seen["passed"]
+    if case == "painted":
+        assert seen["failed"] >= 2
+    if case == "passthrough":
+        assert seen["passth"] >= 2
+
+
+def test_prepare_reads_matches_jax_host_steps(prep_case):
+    """``prepare_reads`` gives every field of every prepared read with the
+    bits of the JAX package's host steps run read by read on the port's own
+    chase (its fill and chase, held to the JAX package's elsewhere, are
+    shared; the JAX package's own fill may break a tie otherwise): event
+    detection, k-mer ranks and quantile scaling; ``decode_moves`` of each
+    read's column of its fill group's moves with
+    ``prepare_emission_coefficients``, and prep's QC; then
+    ``theilsen_pregather``, batched in read order for the port's device
+    Theil-Sen (the JAX package's differs in its f32 rounding).  Each read's
+    device fill row is its events scaled by the quantile shift and scale,
+    in f32, then zeros."""
+    import inspect
+    import torch
+    from dnascent_tpu import native as jn
+    from dnascent_tpu.ops import banded as jbanded
+    from dnascent_tpu.ops import scaling as jscaling
+    from dnascent_tpu.pipeline.prep import _detect_and_merge
+    from dnascent_tpu_torch import native as tn
+    from dnascent_tpu_torch.ops import scaling as tscaling
+    from dnascent_tpu_torch.pipeline.prep import devmod
+
+    case, records, pms, jmodels, cfg, jcfg = prep_case
+    got, calls, groups = _prep(records, pms, cfg)
+    assert len(calls) == len(groups)
+    where = {id(p): (g, b) for g, group in enumerate(groups)
+             for b, p in enumerate(group)}
+    args = [inspect.signature(tn.prep_decode_group).bind(*a, **kw).arguments
+            for a, kw, _ in calls]
+    want, ts = [], []
+    for rec, p in zip(records, got):
+        mean, rs, re_, et_n = _detect_and_merge(rec.raw, jcfg)
+        rq, rr, few, shift, scale = _jax_scaling(
+            jmodels, rec.basecall, rec.reference_seq, mean)
+        w = dict(event_mean=mean, event_raw_start=rs, event_raw_end=re_,
+                 et_n=et_n, kmer_ranks_query=rq, kmer_ranks_ref=rr,
+                 shift=shift, scale=scale, events_per_base=0.0,
+                 event_alignment=np.empty((0, 2), np.int64),
+                 qc_fail_reason="too_few_events" if few else None,
+                 shift_q=0.0 if few else shift,
+                 scale_q=1.0 if few else scale)
+        want.append(w)
+        epb = et_n / max(1, len(rec.basecall) - jcfg.kmer_len)
+        if few:
+            assert id(p) not in where and p.events_dev is None
+            continue
+        g, b = where[id(p)]
+        arg = args[g]
+        assert p.events_row == b
+        nk = rq.shape[0]
+        mu, inv, lpc = jbanded.prepare_emission_coefficients(
+            rq[None, :], jmodels.pore_model)
+        q2r = np.full(nk, -1, np.int64)
+        src = rec.query_to_ref[:nk]
+        q2r[: src.shape[0]] = src
+        scaled = ((mean - shift) / scale).astype(np.float32)
+        row = p.events_dev[b].numpy()
+        assert row[: mean.shape[0]].tobytes() == scaled.tobytes()
+        assert not row[mean.shape[0]:].any()
+        pairs, cs, cr, avg, spanned, gap = jn.decode_moves(
+            arg["packed"], b, int(arg["best_event"][b]), nk, mean, scaled,
+            mu[0], inv[0], lpc[0], q2r, rr)
+        if not (avg >= jcfg.banded.min_average_log_emission and spanned
+                and gap <= jcfg.banded.max_gap_threshold
+                and cs.shape[0] >= jcfg.banded.min_cleaned_events):
+            w["qc_fail_reason"] = "banded_qc"
+            continue
+        w["event_alignment"] = pairs
+        ts.append((w, epb, jscaling.theilsen_pregather(
+            cs, cr, jmodels.pore_model, jcfg.scaling.theilsen_max_points,
+            jcfg.scaling.theilsen_trim)))
+    assert ts
+    B = devmod.pad_rows(len(ts))
+    mp = jcfg.scaling.theilsen_max_points
+    sig = np.zeros((B, mp), np.float32)
+    mms = np.zeros((B, mp), np.float32)
+    npts = np.zeros(B, np.int32)
+    passth = np.ones(B, bool)
+    sh = np.zeros(B, np.float32)
+    sc = np.ones(B, np.float32)
+    for b, (w, _, row) in enumerate(ts):
+        sig[b], mms[b], npts[b], passth[b] = row
+        sh[b], sc[b] = w["shift"], w["scale"]
+    new_sh, new_sc = tscaling.theilsen_refine_pregathered(
+        *(torch.from_numpy(a) for a in (sig, mms, npts, passth, sh, sc)))
+    for b, (w, epb, _) in enumerate(ts):
+        w["shift"], w["scale"] = float(new_sh[b]), float(new_sc[b])
+        if w["shift"] == -1.0:
+            w["qc_fail_reason"] = "theilsen"
+            w["event_alignment"] = np.empty((0, 2), np.int64)
+        # eventsPerBase (event_handling.cpp:606)
+        w["events_per_base"] = epb
+    for p, w in zip(got, want):
+        for f, y in w.items():
+            x = getattr(p, f)
+            if isinstance(x, np.ndarray):
+                assert x.dtype == y.dtype and x.shape == y.shape, f
+                assert x.tobytes() == y.tobytes(), (case, f)
+            elif isinstance(x, float):
+                assert type(y) is float and _bits(x) == _bits(y), (
+                    case, f, x, y)
+            else:
+                assert x == y, (case, f, x, y)
+    reasons = [p.qc_fail_reason for p in got]
+    assert None in reasons
+    if case == "painted":
+        assert "banded_qc" in reasons
+    if case == "passthrough":
+        assert passth[: len(ts)].sum() >= 2
+
+
+def test_fill_rows_match_jax_emission_coefficients(models, port_models):
+    """A fill group's native rows (kernel A's and kernel E's) against the
+    JAX package's ``prepare_emission_coefficients`` of the group's query
+    ranks, undefined k-mers read as rank 0 (data_IO.cpp:131), on the static
+    table and on a per-k-mer-stdv table: mu (+inf past each read's k-mers
+    for kernel A), inv_sigma and lp_const (-inf past them for kernel E),
+    the scaled events and the counts, bit for bit; and the model set's
+    ``pore_tables`` gathered at the raw ranks, -inf lp_const for an
+    undefined k-mer, give the JAX package's coefficients of them (built
+    alike for a model set of the JAX package's, which has no cache)."""
+    from dnascent_tpu.ops import banded as jbanded
+    from dnascent_tpu_torch.pipeline import prep as tprep
+    records = _odd_base_records(port_models)[:4] + _sim_records(
+        port_models, 2, 2000, 5)
+    prepped = [p for p in tprep.quantile_scaled_reads(records, port_models,
+                                                      DNA_R10) if p.passed]
+    assert len(prepped) == 6
+    raw = np.concatenate([p.kmer_ranks_query for p in prepped])
+    assert (raw < 0).any()
+    B = tprep.devmod.pad_rows(len(prepped))
+    E = max(p.n_events for p in prepped)
+    K = max(p.n_kmers for p in prepped)
+    ranks = np.full((B, K), -1, np.int64)
+    scaled = np.zeros((B, E), np.float32)
+    counts = np.zeros((2, B), np.int32)
+    for b, p in enumerate(prepped):
+        ranks[b, : p.n_kmers] = np.maximum(p.kmer_ranks_query, 0)
+        scaled[b, : p.n_events] = (p.event_mean - p.shift) / p.scale
+        counts[:, b] = p.n_events, p.n_kmers
+    for table in (models.pore_model, models.unlabelled_model):
+        pms = dataclasses.replace(port_models, pore_model=table)
+        mu, inv, lpc = jbanded.prepare_emission_coefficients(ranks, table)
+        lean = tprep.fill_inputs(prepped, pms)
+        gen = tprep.general_fill_inputs(prepped, pms)
+        for got, want in ((lean[1], np.where(ranks < 0, np.inf, mu)),
+                          (gen[1], mu), (gen[2], inv), (gen[3], lpc)):
+            assert got.dtype == np.float32
+            assert got.tobytes() == want.astype(np.float32).tobytes()
+        for arrays in (lean, gen):
+            assert arrays[0].tobytes() == scaled.tobytes()
+            assert [a.tolist() for a in arrays[-2:]] == counts.tolist()
+        t = pms.pore_tables
+        assert tprep.pore_tables(pms) is t
+        # a model set without the cache (the JAX package's) has them built
+        built = tprep.pore_tables(dataclasses.replace(models,
+                                                      pore_model=table))
+        assert [a.tobytes() for a in built] == [a.tobytes() for a in t]
+        assert t.mean.dtype == np.float64
+        np.testing.assert_array_equal(t.mean, table[:, 0])
+        want = jbanded.prepare_emission_coefficients(raw, table)
+        safe = np.maximum(raw, 0)
+        got = (t.mu[safe], t.inv_sigma[safe],
+               np.where(raw < 0, np.float32(-np.inf), t.lp_const[safe]))
+        for g, w in zip(got, want):
+            assert g.tobytes() == w.tobytes()
+
+
+def test_prep_calls_refuse_bad_inputs(port_models):
+    """The prep wrappers raise before any pointer reaches the library on
+    inputs that do not fit: meta that does not match the inputs or is
+    negative, a pore table of two columns, offsets that do not lay out the
+    arrays, reads wider than the rows asked for, more reads than shifts, a
+    best event outside its read, and Theil-Sen rows too narrow."""
+    from dnascent_tpu_torch import native as tn
+    from dnascent_tpu_torch.pipeline import prep as tprep
+    recs = _sim_records(port_models, 2, 1200, 3)
+    p = tprep.quantile_scaled_reads(recs, port_models, DNA_R10)[0]
+    mean = port_models.pore_model[:, 0].astype(np.float64)
+    seq = "ACGT" * 10
+    for meta, pm in (([[40, 40, 5]], mean), ([[40, 41, 6]], mean),
+                     ([[-1, 41, 6]], mean),
+                     ([[40, 40, 6]], port_models.pore_model)):
+        with pytest.raises(ValueError, match="prep_scale_batch"):
+            tn.prep_scale_batch(seq.encode(), seq.encode(), meta,
+                                np.zeros(6), pm, 9, 10)
+    E, K = p.n_events, p.n_kmers
+    o = np.array([[0, 0], [E, K]])
+    one = np.ones(1)
+    ev, rq = p.event_mean, p.kmer_ranks_query
+    for offs, e, k, sh in ((o + 1, E, K, one), (o[:, :1], E, K, one),
+                           (o, E - 1, K, one), (o, E, K - 1, one),
+                           (o, E, K, one[:0])):
+        with pytest.raises(ValueError, match="prep_fill_rows"):
+            tn.prep_fill_rows(ev, rq, offs, sh, one, 1, e, k)
+    scaled, _, n_ev, _ = tn.prep_fill_rows(ev, rq, o, one, one, 1, E, K)
+    mp = DNA_R10.scaling.theilsen_max_points
+    ts = (np.zeros((1, mp), np.float32), np.zeros((1, mp), np.float32),
+          np.zeros(1, np.int32), np.ones(1, np.uint8))
+    q2r = p.record.query_to_ref
+    o4 = np.array([[0, 0, 0, 0], [E, K, p.kmer_ranks_ref.shape[0],
+                                  q2r.shape[0]]])
+    rest = (ev, rq, p.kmer_ranks_ref, q2r, scaled,
+            port_models.pore_tables[1:], -2.0, 5, 1000, mp, 50)
+    packed = np.full((8, 1), 0xFF, np.uint8)
+    for offs, best in ((o4, [int(n_ev[0])]), (o4 * 2, [0]),
+                       (np.concatenate([o4, o4[1:]]), [0])):
+        with pytest.raises(ValueError, match="prep_decode_group"):
+            tn.prep_decode_group(packed, np.array(best, np.int32), offs,
+                                 *rest, *ts)
+    with pytest.raises(ValueError, match="Theil-Sen rows"):
+        tn.prep_decode_group(packed, np.zeros(1, np.int32), o4, *rest,
+                             ts[0][:, 1:].copy(), *ts[1:])
+    pairs, offs, ok = tn.prep_decode_group(packed, np.zeros(1, np.int32),
+                                           o4, *rest, *ts)
+    assert pairs.shape == (0, 2) and offs.tolist() == [0, 0]
+    assert not ok[0]
+
+
 @pytest.fixture(scope="module")
 def port_prepped(dataset, port_models):
     """The golden reads through the port's prep (CPU)."""

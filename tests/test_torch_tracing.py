@@ -30,6 +30,8 @@ WORKER_PARENT = {
     "eventalign.windows": ALIGN, "eventalign.viterbi": ALIGN,
     "eventalign.postprocess": ALIGN,
     "eventalign.window_build": "eventalign.windows",
+    "prep.scale_build": "prep.scaling",
+    "prep.decode_build": "prep.banded_decode",
     "cnn.pack": CNN, "cnn.forward": CNN,
 }
 # the device waits, and the steps they sit in
@@ -184,6 +186,42 @@ def test_window_sets_built_once_and_copied_once_a_fill_group():
                     and s.batch == b for s in spans) for b in (0, 1)]
     assert under("eventalign.window_build", "eventalign.windows") == [1, 1]
     assert under("h2d", "eventalign.windows") == [2, 2]
+
+
+def test_prep_builds_once_a_batch_and_once_a_fill_group():
+    """Under a recorder, prep on a batch of 2 reads and on one of 8 reads
+    of one fill group, then on 2 reads of two fill groups (3 and 5 kb
+    events apart): the native scaling call runs once a batch, in its own
+    ``prep.scale_build`` span under ``prep.scaling``, and the decode call
+    once a fill group, in ``prep.decode_build`` under
+    ``prep.banded_decode``, whatever the number of reads."""
+    from dnascent_tpu_torch.pipeline.prep import _fill_groups, prepare_reads
+    from dnascent_tpu_torch.pipeline.source import SimulatedSource
+    torch.set_num_threads(2)
+    pms = synthetic_model_set(DNA_R10)
+    records = list(SimulatedSource(pms, DNA_R10, n_reads=8, length=1500,
+                                   seed=7))
+    longer = list(SimulatedSource(pms, DNA_R10, n_reads=1, length=3000,
+                                  seed=9))
+    batches = (records[:2], records, records[:1] + longer)
+    timer = StageTimer()
+    groups = []
+    for b, recs in enumerate(batches):
+        with timer.scope("worker"), timer.span("batch", batch=b):
+            prepped = prepare_reads(recs, pms, DNA_R10, device="cpu")
+        assert len(prepped) == len(recs) and all(p.passed for p in prepped)
+        groups.append(len(_fill_groups(prepped)))
+    assert groups == [1, 1, 2]
+    spans = timer.spans()
+    by_id = {s.sid: s for s in spans}
+
+    def under(name, parent):
+        return [sum(s.name == name and by_id[s.parent].name == parent
+                    and s.batch == b for s in spans)
+                for b in range(len(batches))]
+    assert under("prep.scale_build", "prep.scaling") == [1, 1, 1]
+    assert under("prep.decode_build", "prep.banded_decode") == groups
+    assert under("prep.fill_build", "batch") == groups
 
 
 def test_no_recorder_records_nothing_and_reads_no_clock():
