@@ -5,7 +5,7 @@
 
 Phases, one line each:
   0. set-up: card name and power limit, torch/CUDA/nvcc/triton versions,
-     build of the six CUDA kernels (five sources, one nvcc each, in
+     build of the seven CUDA kernels (six sources, one nvcc each, in
      parallel) from ``dnascent_tpu_torch/csrc``, with ptxas's register
      and spill counts;
   1. each kernel against its plain PyTorch twin on the card, with both
@@ -16,7 +16,14 @@ Phases, one line each:
      rows of 20 samples (padded tails, rows of the code q=128), beside its
      library yardstick
      (``gru.gru_encoder_library``: ``torch.nn.GRU`` over each row's live
-     steps, TF32 off), timed whole and as the bare ``nn.GRU`` call;
+     steps, TF32 off), timed whole and as the bare ``nn.GRU`` call; the
+     reference trunk's epilogue (``ops/trunk_epilogue_cuda.py``) on the 34
+     conv results of one forward of the reference topology at the path's
+     32 x 10,240 positions, each launch bitwise against its twin (the
+     module chain's ops), timed alone (the largest) and over the 34, beside
+     their byte bound and the twin's time over the same 34, and the trunk's
+     two routes on one input (fused: cached weights and the epilogue; the
+     module chain), device and host time a pass;
   2. four 2 kb reads through ``detect_reads`` on CUDA and on the CPU with
      the same DetectCNN weights: positions equal, probabilities within
      tolerance;
@@ -29,7 +36,8 @@ Phases, one line each:
      trained weights have) written as a SavedModel directory and read back by
      the port's loader; CPU against CUDA on four 2 kb reads, then 64 reads
      of 10 kb at batch 32 on CUDA; kernels A-D and F must have launched;
-     prints the histogram of live steps per row fed to F;
+     prints the histogram of live steps per row fed to F; the trunk
+     epilogue must have launched 34 times a forward;
   5. the fit-stdv path: a pore model whose stdv varies per k-mer; CPU
      against CUDA on four 2 kb reads, then 32 reads of 10 kb on CUDA;
      kernel E must have launched and kernel A must not;
@@ -255,6 +263,9 @@ LIBRARY_NOTES = {
     "gru_encoder": "torch.nn.GRU(1, 16, num_layers=2) over each row's live "
                    "steps packed (a masked step carries the state, the same "
                    "as deleting it): whole gru_encoder_library, TF32 off",
+    "trunk_epilogue": "no single PyTorch call: bias, BatchNorm, residual add, "
+                      "ReLU and cast are the module chain's separate ops, "
+                      "timed as plain_ms",
 }
 
 
@@ -285,14 +296,15 @@ def ptxas_report(log: str) -> dict:
     return {k: "; ".join(v) for k, v in out.items()}
 
 
-def cuda_ms(torch, fn, reps: int) -> float:
+def cuda_ms(torch, fn, reps: int, spin: int = 200_000) -> float:
     """Mean device time of ``fn`` over ``reps`` calls (CUDA events).  The
-    card first spins for ~0.1 ms a call, so the host has queued every call
-    before the first runs: a kernel shorter than its wrapper's host work is
-    timed back to back, not at the host's issue rate."""
+    card first spins for ``spin`` cycles (~0.1 ms by default) a call, so the
+    host has queued every call before the first runs: a kernel shorter than
+    its wrapper's host work is timed back to back, not at the host's issue
+    rate."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(200_000 * reps)
+    torch.cuda._sleep(spin * reps)
     start.record()
     for _ in range(reps):
         fn()
@@ -433,6 +445,7 @@ def phase1_kernels(torch, np, models, dev):
 
     rows["banded_fill_general"] = phase1_general_fill(torch, models, dev)
     rows["gru_encoder"] = phase1_gru(torch, np, dev)
+    rows["trunk_epilogue"] = phase1_epilogue(torch, np, dev)
     return rows
 
 
@@ -551,6 +564,103 @@ def phase1_gru(torch, np, dev):
     return row
 
 
+def phase1_epilogue(torch, np, dev):
+    """The trunk epilogue at the path's shapes: one no-grad forward of the
+    reference topology (seeded weights) at 32 x 10,240 positions with u8
+    windows, its 34 epilogue calls' arguments recorded; each launch bitwise
+    against the twin; the largest alone and the 34 together timed, beside
+    the bytes they must move (conv results read once, outputs written
+    once, tables) and the twin's time over the same 34.  Then the trunk on
+    one lifted input both ways: the fused route (``_Inference.trunk``) and
+    the module chain (``_trunk``), device time by CUDA events and host
+    time a pass (the Python issuing the ops, no synchronise)."""
+    from dnascent_tpu_torch.models import reference_cnn
+    from dnascent_tpu_torch.ops import trunk_epilogue_cuda as ep
+
+    B, L = 32, 10240
+    model = reference_cnn.params_from_tensors(
+        reference_cnn.ReferenceDetectCNN(), reference_tensors()).to(dev)
+    rng = np.random.default_rng(SEED + 11)
+    core = torch.from_numpy(rng.integers(1, 1025, (B, L))).to(dev)
+    resid = torch.from_numpy(rng.integers(1, 257, (B, L))).to(dev)
+    sig = np.clip(rng.normal(128, 30, (B, L, 20)), 1, 255).astype(np.uint8)
+    sig[np.arange(20)[None, None, :] >= rng.integers(0, 21, (B, L))[
+        ..., None]] = 0
+    sig = torch.from_numpy(sig).to(dev)
+    calls = []
+    orig = reference_cnn.trunk_epilogue
+
+    def recorded(*args, **kw):
+        calls.append((args, kw))
+        return orig(*args, **kw)
+
+    reference_cnn.trunk_epilogue = recorded
+    try:
+        with torch.no_grad():
+            model(core, resid, sig)
+    finally:
+        reference_cnn.trunk_epilogue = orig
+    torch.cuda.synchronize()
+    if len(calls) != 34:
+        fail(f"trunk epilogue: {len(calls)} calls a forward, expected 34")
+
+    def operands(args):
+        return [t for t in args if t is not None]
+
+    nbytes = 0
+    for args, kw in calls:
+        got = ep.trunk_epilogue(*args, **kw)
+        want = ep.trunk_epilogue_plain(*args, **kw)
+        if not torch.equal(got.reshape(-1).view(torch.uint8),
+                           want.reshape(-1).view(torch.uint8)):
+            fail(f"trunk epilogue disagrees with its twin at "
+                 f"{tuple(args[0].shape)}")
+        nbytes += tensor_bytes(*operands(args), got)
+    args, kw = max(calls, key=lambda c: sum(t.numel() for t in operands(
+        c[0])))
+    out, row = compare(torch, "trunk epilogue",
+                       lambda: ep.trunk_epilogue(*args, **kw),
+                       lambda: ep.trunk_epilogue_plain(*args, **kw), 10,
+                       list(args[0].shape))
+    row["form"] = "join" if len(args) > 2 and args[2] is not None else "bn"
+    row.update(bound(tensor_bytes(*operands(args), out), 0))
+
+    def all34(fn):
+        for a, k in calls:
+            fn(*a, **k)
+
+    with torch.no_grad():
+        row["forward_34"] = dict(
+            launches=len(calls), bytes=nbytes,
+            ms=cuda_ms(torch, lambda: all34(ep.trunk_epilogue), 5,
+                       spin=2_000_000),
+            plain_ms=cuda_ms(torch, lambda: all34(ep.trunk_epilogue_plain),
+                             5, spin=20_000_000),
+            bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3)
+        del calls, args, out
+        cache = model.inference_cache()
+        feats = torch.zeros((B, L, 64), device=dev)
+        feats[..., :18] = torch.randn((B, L, 18), device=dev)
+        x = feats.transpose(1, 2)
+        if not torch.equal(cache.trunk(x), model._trunk(x)):
+            fail("the fused trunk differs from the module chain")
+        trunk = {}
+        for name, fn in (("fused", lambda: cache.trunk(x)),
+                         ("module_chain", lambda: model._trunk(x))):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                fn()
+            host_ms = (time.perf_counter() - t0) / 3 * 1e3
+            torch.cuda.synchronize()
+            trunk[name] = dict(device_ms=cuda_ms(torch, fn, 5,
+                                                 spin=40_000_000),
+                               host_ms=host_ms)
+    row["trunk_pass"] = trunk
+    return row
+
+
 def cpu_agreement(torch, np, models, model, dev, tol, records=None):
     """Four reads (``records``, or simulated 2 kb reads) through
     ``detect_reads`` on the CPU and on CUDA with the same weights: read sets
@@ -595,6 +705,7 @@ class PathShapes:
         from dnascent_tpu_torch.pipeline import eventalign
         self.fill_shapes = []
         self.live_hist = None
+        self.gru_calls = 0
         self.round_windows = []
         self.round_s = []
         self._patches = [(viterbi_cuda, "viterbi_fill_codes"),
@@ -609,6 +720,7 @@ class PathShapes:
             return fill(obs_T, mu, *args)
 
         def encoder_observed(xq, w):
+            self.gru_calls += 1
             counts = gru.dequantise(xq)[1].sum(dim=1)
             hist = torch.bincount(counts, minlength=xq.shape[1] + 1)
             self.live_hist = (hist if self.live_hist is None
@@ -637,7 +749,7 @@ class PathShapes:
         hist = (None if self.live_hist is None
                 else self.live_hist.cpu().tolist())
         out = dict(viterbi_fill_WTN=self.fill_shapes,
-                   gru_live_steps_hist=hist)
+                   gru_live_steps_hist=hist, gru_calls=self.gru_calls)
         if self.round_windows:
             out["strict_round_windows"] = self.round_windows
             out["strict_round_s"] = self.round_s
@@ -1870,7 +1982,8 @@ def phase10a(torch, np, models, model, dev, counters, records, p3):
         fail("10a: the .detect body with the stage timer differs from "
              "phase 3's")
     want = dict(banded_fill=2, banded_chase=2, viterbi_fill=6,
-                viterbi_backtrace=6, banded_fill_general=0, gru_encoder=0)
+                viterbi_backtrace=6, banded_fill_general=0, gru_encoder=0,
+                trunk_epilogue=0)
     if launches != p3["launches"] or launches != want:
         fail(f"10a launches {launches}, phase 3 {p3['launches']}, "
              f"expected {want}")
@@ -2668,7 +2781,11 @@ def main() -> int:
     p4 = dict(cuda_vs_cpu=cpu_agreement(torch, np, models, ref, dev,
                                         REF_PROB_ATOL_CPU))
     p4.update(drive(torch, np, models, ref, dev, counters,
-                    A_TO_D + ("gru_encoder",)))
+                    A_TO_D + ("gru_encoder", "trunk_epilogue")))
+    # one GRU call a forward: the epilogue's launches are 34 a forward
+    if p4["launches"]["trunk_epilogue"] != 34 * p4["shapes"]["gru_calls"]:
+        fail(f"trunk epilogue: {p4['launches']['trunk_epilogue']} launches "
+             f"over {p4['shapes']['gru_calls']} forwards")
     print("phase 4 --model path: " + json.dumps(p4), flush=True)
 
     fit = fit_stdv_models(models)
@@ -2773,6 +2890,9 @@ def main() -> int:
                                 "dnascent_tpu/ops/banded_pallas.py:41", p5),
         "gru_encoder": ("dnascent_tpu_torch/csrc/gru_encoder.cu",
                         "dnascent_tpu/models/reference_cnn.py:171", p4),
+        "trunk_epilogue": ("dnascent_tpu_torch/csrc/trunk_epilogue.cu",
+                           "none (XLA fuses this glue in the JAX package)",
+                           p4),
     }
     paths = {"phase3": p3, "phase4": p4, "phase5": p5,
              "phase6": p6["modbam"], "phase7": p7["strict"],
@@ -2794,7 +2914,8 @@ def main() -> int:
             library_ms=row.get("library_ms"),
             library_note=LIBRARY_NOTES[name], bytes=row["bytes"],
             library_gru_ms=row.get("library_gru_ms"), ops=row["ops"],
-            shape=row["shape"]))
+            shape=row["shape"], forward_34=row.get("forward_34"),
+            trunk_pass=row.get("trunk_pass")))
     print(f"total wall: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -24,9 +24,22 @@ stays in it into the pointwise conv), each conv result to f32 before its
 f32 bias; BatchNorm (eps 1e-3, rsqrt), ReLU, the head and softmax in f32.
 Convolutions are cuDNN/oneDNN ``conv1d`` calls ('SAME' padding, (k-1)/2 each
 side), as they were XLA convolutions in the JAX package.
+
+Two routes through the same arithmetic.  With gradients on (training) the
+trunk is the module chain below.  With them off (every detect path) each
+convolution is followed by one ``ops/trunk_epilogue_cuda.trunk_epilogue``
+(the CUDA kernel on a card, its plain twin, the chain's own ops, on the
+CPU) doing the bias, BatchNorm, residual add, ReLU and cast to the next
+conv's dtype, with the conv weights in the conv dtype, BatchNorm's rsqrt
+and the GRU's packed weights prepared once a model (``inference_cache``).
+Both give the same bits: the same operations in the same order, rounded at
+the same points.
 """
 
 from __future__ import annotations
+
+import threading
+import weakref
 
 import numpy as np
 import torch
@@ -35,6 +48,7 @@ import torch.nn.functional as F
 
 from ..ops import gru as gru_ops
 from ..ops.gru_cuda import gru_encoder
+from ..ops.trunk_epilogue_cuda import trunk_epilogue
 
 N_CLASSES = 3
 GRU_UNITS = gru_ops.GRU_UNITS
@@ -96,12 +110,28 @@ class GRUEncoder(nn.Module):
             dict(kernel=self.kernel1, recurrent=self.recurrent1,
                  bias=self.bias1))
 
-    def forward(self, signal: torch.Tensor) -> torch.Tensor:
-        """(N, T) u8 codes or f32 samples (0.0 = padding) -> (N, 16)."""
+    def forward(self, signal: torch.Tensor,
+                packed: torch.Tensor | None = None) -> torch.Tensor:
+        """(N, T) u8 codes or f32 samples (0.0 = padding) -> (N, 16);
+        ``packed``: ``self.packed()`` prepared beforehand."""
+        w = self.packed() if packed is None else packed
         if signal.dtype == torch.uint8:
-            return gru_encoder(signal.contiguous(), self.packed())
+            return gru_encoder(signal.contiguous(), w)
         x = signal.float()
-        return gru_ops.gru_scan_plain(x, x != 0.0, self.packed())
+        return gru_ops.gru_scan_plain(x, x != 0.0, w)
+
+
+def _conv(x, w):
+    """A plain conv ('SAME' padding) of ``x`` already in the conv dtype."""
+    return F.conv1d(x, w, padding=(w.shape[2] - 1) // 2)
+
+
+def _sep_conv(x, depthwise, pointwise):
+    """Depthwise then pointwise, the depthwise result kept in the conv
+    dtype."""
+    y = F.conv1d(x, depthwise, padding=(depthwise.shape[2] - 1) // 2,
+                 groups=depthwise.shape[0])
+    return F.conv1d(y, pointwise)
 
 
 class Conv(nn.Module):
@@ -114,8 +144,7 @@ class Conv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x):   # (B, C, L) f32 -> f32
-        y = F.conv1d(x.to(self.dtype), self.weight.to(self.dtype),
-                     padding=(self.weight.shape[2] - 1) // 2)
+        y = _conv(x.to(self.dtype), self.weight.to(self.dtype))
         return y.float() + self.bias[:, None]
 
 
@@ -131,10 +160,8 @@ class SepConv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x):
-        y = F.conv1d(x.to(self.dtype), self.depthwise.to(self.dtype),
-                     padding=(self.depthwise.shape[2] - 1) // 2,
-                     groups=self.depthwise.shape[0])
-        y = F.conv1d(y, self.pointwise.to(self.dtype))
+        y = _sep_conv(x.to(self.dtype), self.depthwise.to(self.dtype),
+                      self.pointwise.to(self.dtype))
         return y.float() + self.bias[:, None]
 
 
@@ -147,10 +174,84 @@ class BatchNorm(nn.Module):
         for part in _BN_PARTS:
             self.register_parameter(part, nn.Parameter(torch.zeros(ch)))
 
+    def inv(self) -> torch.Tensor:
+        return torch.rsqrt(self.moving_variance + _BN_EPS)
+
     def forward(self, x):
-        inv = torch.rsqrt(self.moving_variance + _BN_EPS)
+        inv = self.inv()
         return ((x - self.moving_mean[:, None]) * inv[:, None]
                 * self.gamma[:, None] + self.beta[:, None])
+
+
+# the inference cache of each model, a replica's copy having its own, and
+# the lock its builds take: a detect run's worker threads share one model
+_INFERENCE: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+_INFERENCE_LOCK = threading.Lock()
+
+
+def _param_key(params: list) -> tuple:
+    """Each parameter's address and version counter, on the first one's
+    device: an in-place change (an optimizer step, ``load_state_dict``)
+    bumps a version, a move or a replaced tensor changes an address."""
+    return (params[0].device,
+            *((p.data_ptr(), p._version) for p in params))
+
+
+class _Inference:
+    """What the no-grad forward reads in place of the modules: each
+    convolution's weights in the conv dtype, each epilogue's table (the
+    conv's bias, then its BatchNorm's mean, ``BatchNorm.inv()``, gamma and
+    beta; ``trunk_epilogue``'s layout) and the GRU's packed weights.
+    ``held`` keeps the parameters' tensors alive so that no address in
+    ``key`` can be reused by another tensor while the cache lives."""
+
+    def __init__(self, model: "ReferenceDetectCNN", params: list, key: tuple):
+        self.key = key
+        self.held = [p.detach() for p in params]
+        lay = model.layer
+        self.dtype = lay(_PROLOGUE[0]).dtype
+        self.gru = model.gru.packed().detach()
+        self.weights = {}
+        for i in _CONV_SHAPES:
+            self.weights[i] = (lay(i).weight.detach().to(self.dtype),)
+        for i in _SEP_SHAPES:
+            self.weights[i] = (lay(i).depthwise.detach().to(self.dtype),
+                               lay(i).pointwise.detach().to(self.dtype))
+        bn_of = {_PROLOGUE[0]: _PROLOGUE[1], **dict(_EPILOGUE)}
+        for blk in _BLOCKS:
+            bn_of.update(zip(blk["seps"], (*blk["bns"], blk["bn_main"])))
+            bn_of[blk["shortcut"]] = blk["bn_short"]
+        self.tables = {}
+        for conv, bn in bn_of.items():
+            rows = [lay(conv).bias]
+            if bn is not None:
+                b = lay(bn)
+                rows += [b.moving_mean, b.inv(), b.gamma, b.beta]
+            self.tables[conv] = torch.stack([r.detach() for r in rows])
+
+    def conv(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        w = self.weights[i]
+        return _conv(x, *w) if len(w) == 1 else _sep_conv(x, *w)
+
+    def trunk(self, x: torch.Tensor) -> torch.Tensor:
+        """The module chain's trunk on the lifted (B, 64, L) f32 features:
+        each conv result goes through one ``trunk_epilogue``, which leaves
+        it in the conv dtype for the next conv (f32 after the last)."""
+        t = self.tables
+        x = self.conv(_PROLOGUE[0], x.to(self.dtype))
+        x = trunk_epilogue(x, t[_PROLOGUE[0]])
+        for blk in _BLOCKS:
+            y = x
+            for s in blk["seps"][:-1]:
+                y = trunk_epilogue(self.conv(s, y), t[s])
+            last, short = blk["seps"][-1], blk["shortcut"]
+            x = trunk_epilogue(self.conv(last, y), t[last],
+                               self.conv(short, x), t[short])
+        for conv, bn in _EPILOGUE:
+            x = trunk_epilogue(self.conv(conv, x), t[conv],
+                               out_dtype=None if bn is not None
+                               else torch.float32)
+        return x
 
 
 class ReferenceDetectCNN(nn.Module):
@@ -184,13 +285,40 @@ class ReferenceDetectCNN(nn.Module):
             rf += _CONV_SHAPES[conv][0] - 1
         return rf
 
+    def inference_cache(self) -> _Inference:
+        """This model's ``_Inference``, rebuilt (under a lock) when a
+        parameter changed, moved or was replaced since it was built.  The
+        parameters are listed from the two levels of modules the model has
+        (a fifth of ``self.parameters()``'s host time)."""
+        mods = (self, self.gru, *self.layers._modules.values())
+        params = [p for m in mods for p in m._parameters.values()]
+        key = _param_key(params)
+        cache = _INFERENCE.get(self)
+        if cache is not None and cache.key == key:
+            return cache
+        with _INFERENCE_LOCK:
+            cache = _INFERENCE.get(self)
+            if cache is None or cache.key != key:
+                cache = _Inference(self, params, key)
+                _INFERENCE[self] = cache
+        return cache
+
     def forward(self, core_idx, residual_idx, signal):
+        fused = None if torch.is_grad_enabled() else self.inference_cache()
         B, L, T = signal.shape
-        h = self.gru(signal.reshape(B * L, T)).reshape(B, L, GRU_UNITS)
-        feats = torch.cat([h, core_idx.float()[..., None],
+        h = self.gru(signal.reshape(B * L, T),
+                     None if fused is None else fused.gru)
+        feats = torch.cat([h.reshape(B, L, GRU_UNITS),
+                           core_idx.float()[..., None],
                            residual_idx.float()[..., None]], dim=-1)
         # parameter-free lift to the trunk's 64 channels (module docstring)
         x = F.pad(feats, (0, TRUNK_CH - feats.shape[-1])).transpose(1, 2)
+        x = self._trunk(x) if fused is None else fused.trunk(x)
+        logits = x.transpose(1, 2) @ self.head_kernel + self.head_bias
+        return torch.softmax(logits, dim=-1)
+
+    def _trunk(self, x):
+        """The trunk as the module chain (the route gradients take)."""
         lay = self.layer
         x = torch.relu(lay(_PROLOGUE[1])(lay(_PROLOGUE[0])(x)))
         for blk in _BLOCKS:
@@ -203,8 +331,7 @@ class ReferenceDetectCNN(nn.Module):
         for conv, bn in _EPILOGUE:
             x = lay(conv)(x)
             x = torch.relu(lay(bn)(x) if bn is not None else x)
-        logits = x.transpose(1, 2) @ self.head_kernel + self.head_bias
-        return torch.softmax(logits, dim=-1)
+        return x
 
 
 def params_from_tensors(model: ReferenceDetectCNN,

@@ -22,7 +22,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 SOURCES = ("banded_fill.cu", "banded_chase.cu", "viterbi_fill.cu",
-           "viterbi_backtrace.cu", "gru_encoder.cu")
+           "viterbi_backtrace.cu", "gru_encoder.cu", "trunk_epilogue.cu")
 # -fmad=false: the fills compare scores for equality, so every multiply and
 # add must round like the plain PyTorch twin's separate ops (see common.cuh)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -53,6 +53,8 @@ _SIGNATURES = {
     "dt_viterbi_terminate_backtrace": [_P] * 7 + [_F] + [_I] * 5 + [_P] * 3,
     # xq, w, N, T, scale, lo, out, stream
     "dt_gru_encoder": [_P] * 2 + [_I] * 2 + [_F] * 2 + [_P] * 2,
+    # y0, t0, y1, t1, B, C, L, has_bn, in_bf16, out_bf16, out, stream
+    "dt_trunk_epilogue": [_P] * 4 + [_I] * 6 + [_P] * 2,
 }
 
 
@@ -197,11 +199,13 @@ class LaunchCounter:
 def launch_counters() -> dict:
     """Every kernel wrapper's ``LaunchCounter`` by kernel name: A
     ``banded_fill``, B ``banded_chase``, C ``viterbi_fill``, D
-    ``viterbi_backtrace``, E ``banded_fill_general``, F ``gru_encoder``."""
-    from . import banded_cuda, gru_cuda, viterbi_cuda
+    ``viterbi_backtrace``, E ``banded_fill_general``, F ``gru_encoder``,
+    and the reference trunk's ``trunk_epilogue``."""
+    from . import banded_cuda, gru_cuda, trunk_epilogue_cuda, viterbi_cuda
     return {"banded_fill": banded_cuda.FILL_LAUNCHES,
             "banded_chase": banded_cuda.CHASE_LAUNCHES,
             "viterbi_fill": viterbi_cuda.FILL_LAUNCHES,
             "viterbi_backtrace": viterbi_cuda.BACKTRACE_LAUNCHES,
             "banded_fill_general": banded_cuda.GENERAL_FILL_LAUNCHES,
-            "gru_encoder": gru_cuda.LAUNCHES}
+            "gru_encoder": gru_cuda.LAUNCHES,
+            "trunk_epilogue": trunk_epilogue_cuda.EPILOGUE_LAUNCHES}

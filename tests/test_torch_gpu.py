@@ -9,7 +9,9 @@ machine without jax it runs as
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
 
+import collections
 import dataclasses
+import threading
 
 import numpy as np
 import pytest
@@ -19,8 +21,8 @@ from dnascent_tpu_torch.config import DNA_R10
 from dnascent_tpu_torch.io.poremodel import synthetic_model_set, synthetic_model_table
 from dnascent_tpu_torch.pipeline.source import SimulatedSource
 from dnascent_tpu_torch.models import reference_cnn
-from dnascent_tpu_torch.ops import (banded_cuda, gru_cuda, viterbi as tvit,
-                                    viterbi_cuda)
+from dnascent_tpu_torch.ops import (banded_cuda, gru_cuda, trunk_epilogue_cuda,
+                                    viterbi as tvit, viterbi_cuda)
 from dnascent_tpu_torch.pipeline.eventalign import HMM_KEY
 
 pytestmark = pytest.mark.gpu
@@ -505,3 +507,173 @@ def test_train_step_cuda_matches_cpu(cuda, arch):
                 frozen[-1], reference_cnn.frozen_parameters(model)))
     assert np.isfinite(losses).all()
     assert abs(losses[0] - losses[1]) <= 1e-2, losses
+
+
+def _bits(t):
+    """A tensor's bit patterns (NaN payloads and -0.0 included)."""
+    return t.contiguous().view(torch.int16 if t.element_size() == 2
+                               else torch.int32)
+
+
+def _epilogue_operand(cuda, gen, shape, dtype):
+    """A seeded conv result of ``shape`` in ``dtype`` with NaN, +-Inf and
+    -0.0 at seeded places, and its (5, C) table; the table's channel 3 has
+    gamma -1, beta -0.0, bias 0.25 = mean, and the result is 0.0 at its
+    first positions, so -0.0 reaches the ReLU there (which on the card, as
+    torch.relu there, gives +0.0)."""
+    B, C, L = shape
+    y = torch.randn(shape, generator=gen, device=cuda) * 2
+    flat = y.view(-1)
+    idx = torch.randint(0, flat.numel(), (4000,), generator=gen, device=cuda)
+    for j, v in enumerate((float("nan"), float("inf"), float("-inf"), -0.0)):
+        flat[idx[j::4]] = v
+    y[0, 3, :8] = 0.0
+    rand = lambda lo, hi: lo + (hi - lo) * torch.rand(  # noqa: E731
+        C, generator=gen, device=cuda)
+    bias, mean, beta = rand(-0.5, 0.5), rand(-0.1, 0.1), rand(-0.1, 0.1)
+    gamma, var = rand(0.5, 1.5), rand(0.5, 2.0)
+    bias[3], mean[3], gamma[3], beta[3] = 0.25, 0.25, -1.0, -0.0
+    inv = torch.rsqrt(var + reference_cnn._BN_EPS)
+    return y.to(dtype), torch.stack([bias, mean, inv, gamma, beta])
+
+
+@pytest.mark.parametrize("C", [64, 128, 256])
+def test_trunk_epilogue_matches_plain(cuda, C):
+    """The trunk epilogue kernel bit for bit against its twin at the main
+    path's (32, C, 10,240), in each form (conv + BN + ReLU; a block's join;
+    conv + bias + ReLU to f32) and conv dtype (bf16, f32), and at L =
+    10,243 (the one-element loop); NaN, +-Inf and -0.0 in the conv
+    results."""
+    ep = trunk_epilogue_cuda
+    gen = torch.Generator(device=cuda).manual_seed(C)
+    for L in (10240, 10243):
+        for dtype in (torch.bfloat16, torch.float32):
+            (y0, t0), (y1, t1) = (
+                _epilogue_operand(cuda, gen, (32, C, L), dtype)
+                for _ in range(2))
+            cases = {"bn": (y0, t0, None, None, None),
+                     "join": (y0, t0, y1, t1, None),
+                     "bias": (y0, t0[:1].contiguous(), None, None,
+                              torch.float32)}
+            for form, args in cases.items():
+                n0 = ep.EPILOGUE_LAUNCHES.count
+                got = ep.trunk_epilogue(*args)
+                want = ep.trunk_epilogue_plain(*args)
+                torch.cuda.synchronize()
+                what = (form, dtype, L)
+                assert ep.EPILOGUE_LAUNCHES.count == n0 + 1, what
+                assert got.dtype == want.dtype and got.is_contiguous()
+                assert torch.equal(_bits(got), _bits(want)), what
+                if form != "bias":   # -0.0 reached the ReLU there
+                    pre = ep._affine(y0[:1, 3:4, :8], t0[:, 3:4])
+                    assert bool((_bits(pre) == -2 ** 31).all()), what
+                assert bool(torch.isnan(got).any()), what
+            del y0, y1, cases, got, want
+
+
+class _AtenCount(collections.Counter):
+    """Non-view aten ops a model's forward dispatches, those inside the
+    GRU encoder left out."""
+
+    def __init__(self, model):
+        super().__init__()
+        from torch.utils._python_dispatch import TorchDispatchMode
+        self.skip = False
+        count = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if not count.skip and not func.is_view:
+                    count[func.overloadpacket.__name__] += 1
+                return func(*args, **(kwargs or {}))
+
+        self.mode = Mode()
+        self.hooks = [
+            model.gru.register_forward_pre_hook(
+                lambda *a: setattr(self, "skip", True)),
+            model.gru.register_forward_hook(
+                lambda *a: setattr(self, "skip", False))]
+
+    def run(self, fn):
+        try:
+            with self.mode:
+                return fn()
+        finally:
+            for h in self.hooks:
+                h.remove()
+
+
+def _model_inputs(cuda, B, L, seed):
+    rng = np.random.default_rng(seed)
+    core = torch.from_numpy(rng.integers(1, 1025, (B, L))).to(cuda)
+    res = torch.from_numpy(rng.integers(1, 257, (B, L))).to(cuda)
+    sig = np.clip(rng.normal(128, 30, (B, L, 20)), 1, 255).astype(np.uint8)
+    sig[np.arange(20)[None, None, :] >= rng.integers(0, 21, (B, L))[
+        ..., None]] = 0
+    return core, res, torch.from_numpy(sig).to(cuda)
+
+
+@pytest.mark.parametrize("precision", ["bf16", "f32"])
+def test_fused_forward_matches_module_chain_cuda(cuda, precision):
+    """The reference topology's no-grad forward (cached weights, the
+    epilogue kernel after each of the 69 convolutions' 34 groups) equals
+    its grad-mode forward (the module chain) bit for bit at (4, 10,240),
+    launches the epilogue exactly 34 times, and dispatches at most 130
+    non-view aten ops outside the GRU encoder (the chain: about 530)."""
+    dt = torch.float32 if precision == "f32" else torch.bfloat16
+    model = reference_cnn.params_from_tensors(
+        reference_cnn.ReferenceDetectCNN(dt), _reference_tensors(3)).to(cuda)
+    inputs = _model_inputs(cuda, 4, 10240, 5)
+    chain = model(*inputs).detach()
+    with torch.no_grad():
+        model(*inputs)                       # builds the cache
+        n0 = trunk_epilogue_cuda.EPILOGUE_LAUNCHES.count
+        count = _AtenCount(model)
+        fused = count.run(lambda: model(*inputs))
+        n1 = trunk_epilogue_cuda.EPILOGUE_LAUNCHES.count
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(chain), _bits(fused))
+    assert n1 - n0 == 34
+    assert sum(count.values()) <= 130, count.most_common(12)
+    assert count["convolution"] == 69, count.most_common(12)
+
+
+def test_fused_forward_threads_share_one_model_cuda(cuda):
+    """Four threads calling one fresh model at once on the card (the first
+    calls race to build the cache) give the single-thread results bit for
+    bit."""
+    import sys
+    tensors = _reference_tensors(4)
+    inputs = [_model_inputs(cuda, 2, 4096, 20 + k) for k in range(4)]
+    ref = reference_cnn.params_from_tensors(
+        reference_cnn.ReferenceDetectCNN(), tensors).to(cuda)
+    with torch.no_grad():
+        want = [ref(*x) for x in inputs]
+    model = reference_cnn.params_from_tensors(
+        reference_cnn.ReferenceDetectCNN(), tensors).to(cuda)
+    got, errors = [None] * 4, []
+    barrier = threading.Barrier(4)
+
+    def work(k):
+        try:
+            barrier.wait(timeout=60)
+            with torch.no_grad():
+                for _ in range(3):
+                    got[k] = model(*inputs[k])
+            torch.cuda.synchronize()
+        except Exception as exc:   # reported below
+            errors.append(exc)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=work, args=(k,)) for k in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not errors and not any(t.is_alive() for t in threads), errors
+    for g, w in zip(got, want):
+        assert torch.equal(_bits(g), _bits(w))

@@ -6,6 +6,7 @@ import copy
 import os
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -16,7 +17,7 @@ import torch
 from dnascent_tpu.models import reference_cnn as rc
 from dnascent_tpu.models.cnn import SIG_QUANT_LO, SIG_QUANT_SCALE
 from dnascent_tpu_torch.models import reference_cnn as trc
-from dnascent_tpu_torch.ops import gru as tgru, gru_cuda
+from dnascent_tpu_torch.ops import gru as tgru, gru_cuda, trunk_epilogue_cuda
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # every model below carries seeded non-zero biases and BatchNorm statistics
@@ -275,6 +276,241 @@ def test_float_window_matches_jax(monkeypatch):
     assert _signal_windows(torch.zeros(3, dtype=torch.uint8),
                            torch.ones((1, 3), dtype=torch.uint8), 1,
                            3).dtype == torch.uint8
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """The tensor's bit patterns (NaN payloads and -0.0 included)."""
+    return t.contiguous().view(torch.int16 if t.element_size() == 2
+                               else torch.int32)
+
+
+def _specials(y: torch.Tensor, rng) -> torch.Tensor:
+    """``y`` with NaN, +-Inf and -0.0 at seeded places."""
+    flat = y.reshape(-1).clone()
+    idx = rng.permutation(flat.numel())[:40]
+    for j, v in enumerate((float("nan"), float("inf"), float("-inf"), -0.0)):
+        flat[torch.from_numpy(idx[j::4])] = v
+    return flat.reshape(y.shape)
+
+
+def _epilogue_case(form, dtype, seed, B=2, C=16, L=40):
+    """Two conv results in ``dtype`` with specials, and for each a seeded
+    conv bias and BatchNorm (modules of the chain).  Channels 3 and 5 of
+    the first read's first positions come out of the ReLU as -0.0: in
+    channel 3 the BatchNorm input equals its mean (gamma -1, beta -0.0),
+    in channel 5 the conv result and the bias are both -0.0."""
+    rng = np.random.default_rng(seed)
+    ys = [_specials(torch.from_numpy(rng.normal(0, 2, (B, C, L)).astype(
+        np.float32)).to(dtype), rng) for _ in range(2)]
+    biases, bns = [], []
+    for y in ys:
+        y[0, 3, :4] = 0.0
+        y[0, 5, :4] = -0.0
+        bias = torch.from_numpy(rng.normal(0, 0.5, C).astype(np.float32))
+        bias[3], bias[5] = 0.25, -0.0
+        bn = trc.BatchNorm(C)
+        with torch.no_grad():
+            bn.gamma.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, C)))
+            bn.beta.copy_(torch.from_numpy(rng.normal(0, 0.1, C)))
+            bn.moving_mean.copy_(torch.from_numpy(rng.normal(0, 0.1, C)))
+            bn.moving_variance.copy_(torch.from_numpy(rng.uniform(0.5, 2, C)))
+            bn.gamma[3], bn.beta[3], bn.moving_mean[3] = -1.0, -0.0, 0.25
+        biases.append(bias)
+        bns.append(bn)
+    with torch.no_grad():
+        chain = [y.float() + b[:, None] for y, b in zip(ys, biases)]
+        tables = [torch.stack([b, bn.moving_mean, bn.inv(), bn.gamma,
+                               bn.beta]) for b, bn in zip(biases, bns)]
+        if form == "bias":
+            want = torch.relu(chain[0])
+            return ys[:1], [biases[0][None]], want, torch.float32
+        want = bns[0](chain[0])
+        if form == "join":
+            want = want + bns[1](chain[1])
+            return ys, tables, torch.relu(want).to(dtype), None
+        return ys[:1], tables[:1], torch.relu(want).to(dtype), None
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("form", ["bn", "join", "bias"])
+def test_epilogue_twin_matches_module_chain(form, dtype):
+    """The epilogue's plain twin, and its wrapper on the CPU (which takes
+    the twin), equal the module chain's ops bit for bit in each of the
+    three forms: conv + BN + ReLU, two of them added then ReLU (a block's
+    join), conv + bias + ReLU to f32 (the trunk's last conv); NaN, +-Inf
+    and -0.0 in the conv results."""
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    ys, tables, want, out_dtype = _epilogue_case(form, dt, 31)
+    args = [ys[0], tables[0]] + ([ys[1], tables[1]] if form == "join"
+                                 else [None, None])
+    got = trunk_epilogue_cuda.trunk_epilogue_plain(*args, out_dtype)
+    assert got.dtype == want.dtype == (out_dtype or dt)
+    assert torch.isnan(want).any() and torch.isinf(want).any()
+    assert (_bits(want) == _bits(torch.tensor(-0.0, dtype=want.dtype))).any()
+    assert torch.equal(_bits(got), _bits(want))
+    assert torch.equal(_bits(trunk_epilogue_cuda.trunk_epilogue(
+        *args, out_dtype)), _bits(want))
+
+
+def test_epilogue_wrapper_refuses_what_the_kernel_does_not_take():
+    y = torch.zeros((2, 8, 16), dtype=torch.bfloat16)
+    t5, t1 = torch.zeros((5, 8)), torch.zeros((1, 8))
+    ep = trunk_epilogue_cuda.trunk_epilogue
+    with pytest.raises(ValueError, match="table has shape"):
+        ep(y, torch.zeros((3, 8)))
+    with pytest.raises(ValueError, match="table has shape"):
+        ep(y, t1, y, t5)        # a join needs BatchNorm on both operands
+    with pytest.raises(ValueError, match="y2 needs table2"):
+        ep(y, t5, y)
+    with pytest.raises(ValueError, match="table2 without y2"):
+        ep(y, t5, None, t5)
+    with pytest.raises(ValueError, match="y2 must match"):
+        ep(y, t5, y.float(), t5)
+    with pytest.raises(ValueError, match="y2 must match"):
+        ep(y, t5, y.transpose(1, 2).contiguous().transpose(1, 2), t5)
+    with pytest.raises(TypeError, match="out_dtype"):
+        ep(y.float(), t5, out_dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="dtype"):
+        ep(y, t5.double())
+    with pytest.raises(ValueError, match="y must be contiguous"):
+        ep(y[:, :, ::2], t5)
+    with pytest.raises(ValueError, match="y must be contiguous"):
+        ep(y.transpose(1, 2).contiguous().transpose(1, 2), t5)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        ep(y.half(), t5)
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        ep(y.to("meta"), t5.to("meta"))
+
+
+def _forward_inputs(seed=0, B=2, L=256):
+    core, res, sig = _model_inputs(B, L, seed)
+    return _t(core), _t(res), _t(sig)
+
+
+def _chain_and_fused(model, inputs):
+    """(grad-mode forward: the module chain; no-grad forward: the fused
+    route)."""
+    chain = model(*inputs).detach()
+    with torch.no_grad():
+        fused = model(*inputs)
+    return chain, fused
+
+
+@pytest.mark.parametrize("precision", ["bf16", "f32"])
+def test_fused_forward_matches_module_chain(precision):
+    """The no-grad forward (cached weights, one epilogue after each conv)
+    equals the grad-mode forward (the module chain) bit for bit, on
+    seed_affine weights, for both conv dtypes; the cache is built once and
+    reused."""
+    torch.set_num_threads(2)
+    dt = torch.float32 if precision == "f32" else torch.bfloat16
+    model = _port_model(trc.seed_affine(trc.synthetic_tensors(1), 11), dt)
+    chain, fused = _chain_and_fused(model, _forward_inputs())
+    assert torch.equal(_bits(chain), _bits(fused))
+    cache = model.inference_cache()
+    assert cache.weights[4][0].dtype == dt and cache.tables[78].shape == (1, 64)
+    with torch.no_grad():
+        again = model(*_forward_inputs(1))
+    assert model.inference_cache() is cache
+    assert torch.equal(_bits(again), _bits(model(*_forward_inputs(1)).detach()))
+
+
+def _edit(model, what):
+    """One change to the model's weights, made as a user or a trainer
+    makes it."""
+    with torch.no_grad():
+        if what == "conv_weight":
+            model.layer(46).pointwise.mul_(1.5)
+        elif what == "bn_variance":
+            model.layer(61).moving_variance.add_(0.7)
+        elif what == "gru_weight":
+            model.gru.recurrent1.mul_(-1.0)
+    if what == "load_state_dict":
+        other = _port_model(trc.seed_affine(trc.synthetic_tensors(8), 18))
+        model.load_state_dict(other.state_dict())
+
+
+@pytest.mark.parametrize("what", ["conv_weight", "bn_variance", "gru_weight",
+                                  "load_state_dict"])
+def test_inference_cache_follows_weight_changes(what):
+    """An in-place edit of one conv weight, of one BatchNorm variance and of
+    a GRU weight, and a load_state_dict, each show in the very next no-grad
+    forward: it equals the module chain on the new weights and differs from
+    the forward before the change.  A deep copy (a replica) keeps its own
+    cache."""
+    torch.set_num_threads(2)
+    model = _port_model(trc.seed_affine(trc.synthetic_tensors(2), 12))
+    inputs = _forward_inputs(2)
+    with torch.no_grad():
+        before = model(*inputs)
+    replica = copy.deepcopy(model)
+    _edit(model, what)
+    chain, fused = _chain_and_fused(model, inputs)
+    assert torch.equal(_bits(chain), _bits(fused))
+    assert not torch.equal(fused, before)
+    with torch.no_grad():
+        assert torch.equal(_bits(replica(*inputs)), _bits(before))
+    assert replica.inference_cache() is not model.inference_cache()
+
+
+def test_grad_forward_trains_through_the_chain():
+    """A grad-mode forward runs the module chain and backward() reaches
+    every trainable parameter; a no-grad forward after an optimizer step
+    sees the step."""
+    torch.set_num_threads(2)
+    model = _port_model(trc.seed_affine(trc.synthetic_tensors(3), 13))
+    inputs = _forward_inputs(3, L=128)
+    with torch.no_grad():
+        before = model(*inputs)
+    out = model(*inputs)
+    assert out.requires_grad
+    out[..., 1].sum().backward()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    for name in ("layers.2.weight", "layers.46.pointwise", "layers.61.gamma",
+                 "head_kernel"):
+        assert grads[name] is not None and bool(grads[name].abs().sum() > 0)
+    opt = torch.optim.SGD(model.parameters(), lr=1e-2)
+    opt.step()
+    chain, fused = _chain_and_fused(model, inputs)
+    assert torch.equal(_bits(chain), _bits(fused))
+    assert not torch.equal(fused, before)
+
+
+def test_fused_forward_threads_share_one_model():
+    """Four threads calling one model at once (a fresh model: the first
+    calls race to build its cache) give the single-thread result."""
+    torch.set_num_threads(2)
+    tensors = trc.seed_affine(trc.synthetic_tensors(4), 14)
+    inputs = [_forward_inputs(10 + k, B=1, L=128) for k in range(4)]
+    ref = _port_model(tensors)
+    with torch.no_grad():
+        want = [ref(*x) for x in inputs]
+    model = _port_model(tensors)
+    got, errors = [None] * 4, []
+    barrier = threading.Barrier(4)
+
+    def work(k):
+        try:
+            barrier.wait(timeout=30)
+            with torch.no_grad():
+                for _ in range(2):
+                    got[k] = model(*inputs[k])
+        except Exception as exc:   # reported below
+            errors.append(exc)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=work, args=(k,)) for k in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not errors and not any(t.is_alive() for t in threads)
+    for g, w in zip(got, want):
+        assert torch.equal(_bits(g), _bits(w))
 
 
 def test_seed_affine_draws_every_bias_and_bn_stat():
