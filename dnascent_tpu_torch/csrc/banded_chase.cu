@@ -5,7 +5,7 @@
 // 2-bit codes per byte in strictly descending band order from the top band
 // 4*Sp+1 down to band 2.  A read emits its move (D=0, U=1, L=2) at band
 // e+k+2 and PAD (3) at every other band, so the native decoder
-// (native.decode_moves, which skips PADs) consumes it unchanged.
+// (native.prep_decode_group, which skips PADs) consumes it unchanged.
 //
 // What bounds it on this card: the walk is a serial pointer chase, one
 // trace byte per band whose address depends on the previous move, so

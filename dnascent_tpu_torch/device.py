@@ -1,10 +1,9 @@
 """Placement on one explicit device.
 
-The JAX package places arrays through an optional data-parallel mesh
-(``dnascent_tpu/parallel/compute.py``); the port runs each batch whole on
-one device named by the caller, so placement is a copy to that device and
-row padding is the identity.  Runs over several devices send whole batches
-to each (``parallel/compute.py``).
+Each batch runs whole on one device named by the caller, so placement is a
+copy to that device: a batch-row array and a table every row shares are
+placed alike.  Runs over several devices send whole batches to each
+(``parallel/compute.py``).
 """
 
 from __future__ import annotations
@@ -24,11 +23,6 @@ def resolve(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
-
-
-def pad_rows(n: int) -> int:
-    """Row count a batch is padded to (one device: unchanged, at least 1)."""
-    return max(1, n)
 
 
 def put_rows(x, device) -> torch.Tensor:
@@ -52,7 +46,3 @@ def to_host(t: torch.Tensor) -> np.ndarray:
     with span("readback", wait=True):
         return t.cpu().numpy()
 
-
-# with one device, a batch-row array and one shared by every row (the JAX
-# package's sharded vs replicated placements) are placed alike
-put_rep = put_rows

@@ -95,12 +95,6 @@ def _load():
                 i8p, u8p, i64p, i64p, f64p, i64p, i64p, i64p, i64p, i64p,
                 i64p, i64p, i64p,
             ]
-            lib.decode_moves.restype = i64
-            lib.decode_moves.argtypes = [
-                u8p, i64, i64, i64, i64, i64,
-                f64p, f32p, f32p, f32p, f32p, i64p, i64p, i64,
-                i64p, i64, f64p, i64p, f64p,
-            ]
             i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
             vp = ctypes.c_void_p
             lib.prep_scale_batch.restype = i64
@@ -252,39 +246,6 @@ def eventalign_batch(seq: bytes, meta: np.ndarray, kmer_ranks: np.ndarray,
                            g_ev[: int(offsets[n, 4])], offsets)
 
 
-def decode_moves(packed: np.ndarray, col: int, best_event: int, n_kmers: int,
-                 event_means: np.ndarray, scaled_events: np.ndarray,
-                 mu: np.ndarray, inv_sigma: np.ndarray, lp_const: np.ndarray,
-                 query_to_ref: np.ndarray, kmer_ranks_ref: np.ndarray):
-    """Native decode of one read's packed 2-bit move stream (GIL-released
-    twin of ops.banded.decode_moves_host).  Returns (pairs (n,2),
-    cleaned_signals, cleaned_ranks, avg_log_emission, spanned, max_gap)."""
-    lib = get_lib()
-    rows, B = packed.shape
-    max_pairs = rows * 4 + 1
-    pairs = np.empty(max_pairs * 2, dtype=np.int64)
-    cs = np.empty(max_pairs, dtype=np.float64)
-    cr = np.empty(max_pairs, dtype=np.int64)
-    stats = np.zeros(5, dtype=np.float64)
-    m = lib.decode_moves(
-        np.ascontiguousarray(packed, dtype=np.uint8), rows, B, int(col),
-        int(best_event), int(n_kmers),
-        np.ascontiguousarray(event_means, dtype=np.float64),
-        np.ascontiguousarray(scaled_events, dtype=np.float32),
-        np.ascontiguousarray(mu, dtype=np.float32),
-        np.ascontiguousarray(inv_sigma, dtype=np.float32),
-        np.ascontiguousarray(lp_const, dtype=np.float32),
-        np.ascontiguousarray(query_to_ref, dtype=np.int64),
-        np.ascontiguousarray(kmer_ranks_ref, dtype=np.int64),
-        int(kmer_ranks_ref.shape[0]),
-        pairs, max_pairs, cs, cr, stats)
-    m = int(m)
-    n_cleaned = int(stats[4])
-    return (pairs[: 2 * m].reshape(-1, 2).copy(), cs[:n_cleaned].copy(),
-            cr[:n_cleaned].copy(), float(stats[0]), bool(stats[1]),
-            int(stats[2]))
-
-
 # one row a read of prep_scale_batch's ``meta``
 PREP_META = ("basecall_len", "ref_len", "n_events")
 PrepScale = namedtuple("PrepScale", "rq rr too_few shift scale")
@@ -307,10 +268,11 @@ def prep_scale_batch(query: bytes, ref: bytes, meta: np.ndarray,
                      n_quantiles: int) -> PrepScale:
     """Every read's k-mer ranks and quantile scaling for a batch in one call:
     the native twin of ``utils.seqtools.kmer_ranks`` of the basecall and of
-    the reference, then ``ops.scaling.estimate_scaling_quantiles`` of the
-    events against the reference k-mers' model means (undefined k-mers read
-    as rank 0), read by read, bit for bit.  The inputs are concatenated in
-    read order; ``meta`` has one row a read, the columns of ``PREP_META``;
+    the reference, then the quantile scaling of the events against the
+    reference k-mers' model means (event_handling.cpp:510-541; undefined
+    k-mers read as rank 0), read by read, bit for bit the JAX package's
+    per-read host steps.  The inputs are concatenated in read order;
+    ``meta`` has one row a read, the columns of ``PREP_META``;
     ``pore_mean`` is the pore table's mean a k-mer rank, as f64.  Returns
     the query and reference ranks concatenated in read order (-1 for a k-mer
     with a base outside ACGT), ``too_few`` for a read with fewer than two
@@ -411,14 +373,18 @@ def prep_decode_group(packed: np.ndarray, best_event: np.ndarray,
     call, after the chase's readback: for read b of the group (its events,
     query ranks, reference ranks and query_to_ref concatenated at
     ``offsets``, (reads + 1, 4) starts; column b of ``packed`` (rows, B) and
-    row b of the fill's ``scaled``), ``decode_moves`` with the emission
-    coefficients gathered from the per-k-mer ``tables`` (mu, inv_sigma,
-    lp_const; lp_const -inf for an undefined k-mer), its QC verdict (average
-    log emission, span, largest k-mer gap, cleaned events), and for a
-    passing read its ``ops.scaling.theilsen_pregather`` subsample written
-    into row b of ``sig``, ``mms``, ``npts`` and ``passth`` in place (``sig``
-    and ``mms`` zero beforehand).  Returns (pairs (P, 2) of the group in
-    read order, their (reads + 1) starts, passed (reads,))."""
+    row b of the fill's ``scaled``), the decode of its move stream into
+    event/k-mer pairs and cleaned signals (event_handling.cpp:318-443) with
+    the emission coefficients gathered from the per-k-mer ``tables`` (mu,
+    inv_sigma, lp_const; lp_const -inf for an undefined k-mer), its QC
+    verdict (average log emission, span, largest k-mer gap, cleaned
+    events), and for a passing read its Theil-Sen stride subsample
+    (``idx = trim + skip*j``, clipped, event_handling.cpp:63-65;
+    passthrough with fewer than ``max_points`` cleaned events) written into
+    row b of ``sig``, ``mms``, ``npts`` and ``passth`` in place (``sig``
+    and ``mms`` zero beforehand), bit for bit the JAX package's per-read
+    host steps.  Returns (pairs (P, 2) of the group in read order, their
+    (reads + 1) starts, passed (reads,))."""
     lib = get_lib()
     event_mean = np.ascontiguousarray(event_mean, np.float64)
     rq, rr, q2r = (np.ascontiguousarray(a, np.int64) for a in (rq, rr, q2r))

@@ -40,7 +40,7 @@ def align_reads(records: Iterable[ReadRecord], models: PoreModelSet,
     reference's window coupling; without it windows advance by their full
     span (``--fast-windows``)."""
     devices = as_devices(device)
-    tables = per_device(devices, lambda d: devmod.put_rep(
+    tables = per_device(devices, lambda d: devmod.put_rows(
         models.pore_model.astype(np.float32), d))
 
     def process(batch, dev):

@@ -193,7 +193,7 @@ def run_cnn_batched(model: DetectModel, results: dict,
         bs = max(1, batch_positions // L)
         for i in range(0, len(group), bs):
             chunk = group[i : i + bs]
-            B = devmod.pad_rows(len(chunk))
+            B = len(chunk)
             with span("cnn.pack"):
                 core = np.zeros((B, L), dtype=np.int64)
                 resid = np.zeros((B, L), dtype=np.int64)
@@ -365,7 +365,7 @@ def detect_reads(records: Iterable[ReadRecord], models: PoreModelSet,
     devices = as_devices(device)
     model.eval()
     cnns = replicate_module(model, devices)
-    tables = per_device(devices, lambda d: devmod.put_rep(
+    tables = per_device(devices, lambda d: devmod.put_rows(
         models.pore_model.astype(np.float32), d))
 
     def stage(name):

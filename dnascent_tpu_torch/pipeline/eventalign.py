@@ -381,7 +381,7 @@ def _strict_obs(states: list[_ReadState], cfg: SubstrateConfig,
         parts.append(((means[guard] - p.shift) / p.scale).astype(np.float32))
         st.flat_obs_base = base
         base += parts[-1].shape[0]
-    return devmod.put_rep(np.concatenate(parts), dev)
+    return devmod.put_rows(np.concatenate(parts), dev)
 
 
 def _batch_flat_ranks(codes: np.ndarray, dev) -> torch.Tensor:
@@ -389,8 +389,8 @@ def _batch_flat_ranks(codes: np.ndarray, dev) -> torch.Tensor:
     batch's reference base codes (window rank starts are a state's
     ``rank_off + ri``)."""
     # the u8 view maps -1 (non-ACGT) to 255
-    return seqcodes.flat_ranks_from_codes(devmod.put_rep(codes.view(np.uint8),
-                                                         dev))
+    return seqcodes.flat_ranks_from_codes(
+        devmod.put_rows(codes.view(np.uint8), dev))
 
 
 def viterbi_windows(obs_flat: torch.Tensor, ranks_flat: torch.Tensor,
@@ -748,8 +748,8 @@ def run_eventalign(prepped: list[PreparedRead], models: PoreModelSet,
     if batch.states:
         dev = live[0].events_dev.device
         if model_table is None:
-            model_table = devmod.put_rep(models.pore_model.astype(np.float32),
-                                         dev)
+            model_table = devmod.put_rows(
+                models.pore_model.astype(np.float32), dev)
         if strict:
             paths = _strict_paths(batch, cfg, dev, model_table, hmm_probs,
                                   max_windows_per_batch, spec_depth)

@@ -98,7 +98,7 @@ def hmm_detect_reads(records: Iterable[ReadRecord], models: PoreModelSet,
                 jobs.append((p, wins))
         if jobs:
             n_win = sum(len(wins) for _, wins in jobs)
-            W = devmod.pad_rows(_bucket_up(n_win, 512))
+            W = _bucket_up(n_win, 512)
             T = _bucket_up(max(len(ev) for _, wins in jobs
                                for _, ev, _ in wins), 64)
             obs = np.zeros((W, T), dtype=np.float32)

@@ -161,7 +161,7 @@ def _fill_rows(group: list[PreparedRead], table=None):
         mean, rq, offsets,
         np.fromiter((p.shift for p in group), np.float64, n),
         np.fromiter((p.scale for p in group), np.float64, n),
-        devmod.pad_rows(n), E, K, table)
+        max(1, n), E, K, table)
 
 
 def fill_inputs(group: list[PreparedRead], models: PoreModelSet):
@@ -266,7 +266,7 @@ def prepare_reads(records: list[ReadRecord], models: PoreModelSet,
     if live2:
         with span("prep.theilsen"):
             n2 = len(live2)
-            B = devmod.pad_rows(n2)
+            B = n2
             sig = np.zeros((B, mp), dtype=np.float32)
             mms = np.zeros((B, mp), dtype=np.float32)
             npts = np.zeros(B, dtype=np.int32)

@@ -36,7 +36,7 @@ def generate_training_tables(records, models: PoreModelSet,
     that passes both passes, in order."""
     dev = devmod.resolve(device)
     model.eval()
-    model_table = devmod.put_rep(models.pore_model.astype(np.float32), dev)
+    model_table = devmod.put_rows(models.pore_model.astype(np.float32), dev)
     prepped = prepare_reads(list(records), models, cfg, device=dev)
     results = run_eventalign(prepped, models, cfg, model_table=model_table)
     probs = run_cnn_batched(model, results, prepped, dev)

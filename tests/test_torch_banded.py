@@ -180,13 +180,11 @@ def _moves(packed, col):
 
 def test_chase_matches_pallas_interpret(fill_inputs, port_fill, models):
     """PAD-filtered move streams equal to the Pallas chase on the same
-    trace, in the same (Sp, B) band-ordered layout, and identical decoded
-    alignments from the numpy and native decoders."""
+    trace, in the same (Sp, B) band-ordered layout."""
     from jax.experimental.pallas import tpu as pltpu
-    from dnascent_tpu import native
     from dnascent_tpu.ops import banded_pallas
 
-    scaled, mu, ivs, lpc, n_ev, n_km, _, _ = fill_inputs
+    scaled, _, _, _, _, n_km, _, _ = fill_inputs
     tp, rp, be, _ = port_fill
     port = banded_cuda.backtrace_moves(
         torch.from_numpy(tp), torch.from_numpy(rp), torch.from_numpy(be),
@@ -198,15 +196,6 @@ def test_chase_matches_pallas_interpret(fill_inputs, port_fill, models):
     assert port.shape == ref.shape
     for b in range(scaled.shape[0]):
         np.testing.assert_array_equal(_moves(port, b), _moves(ref, b))
-        q2r = np.arange(int(n_km[b]), dtype=np.int64)
-        args = (int(be[b]), int(n_km[b]), scaled[b].astype(np.float64),
-                scaled[b], mu[b], ivs[b], lpc[b], q2r,
-                np.zeros(int(n_km[b]), np.int64))
-        ours = tbanded.decode_moves_host(port, b, *args)
-        theirs = native.decode_moves(ref, b, *args)
-        np.testing.assert_array_equal(ours[0], theirs[0])
-        assert ours[4:] == theirs[4:]
-        np.testing.assert_allclose(ours[3], theirs[3], rtol=1e-6)
 
 
 def test_host_helpers_match_jax(port_fill, models):

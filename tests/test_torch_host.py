@@ -152,16 +152,6 @@ def test_bam_signal_source_equal(dataset):
             == JSource(dataset.bam, ref, idx, min_length=1000).count_records())
 
 
-def test_estimate_scaling_quantiles_equal():
-    from dnascent_tpu.ops.reference import estimate_scaling_quantiles as j
-    from dnascent_tpu_torch.ops.scaling import estimate_scaling_quantiles as t
-    rng = np.random.default_rng(5)
-    for n in (50, 997, 4000):
-        ev = rng.normal(90, 16, n)
-        mm = rng.normal(0, 1, n + 13)
-        assert t(ev, mm, DNA_R10.scaling) == j(ev, mm, JAX_R10.scaling)
-
-
 def test_native_event_detect_equal(dataset):
     from dnascent_tpu import native as jn
     from dnascent_tpu_torch import native as tn
@@ -183,32 +173,6 @@ def test_native_event_detect_equal(dataset):
         for x, y in zip(a[:3], b[:3]):
             np.testing.assert_array_equal(x, y)
         assert a[3] == b[3]
-
-
-def test_native_decode_moves_equal():
-    from dnascent_tpu import native as jn
-    from dnascent_tpu_torch import native as tn
-    rng = np.random.default_rng(7)
-    rows, B, nk, ne = 300, 3, 700, 900
-    # mostly moves, with PAD gaps, as the chase emits them
-    codes = rng.choice(4, (rows, B, 4), p=[0.4, 0.25, 0.15, 0.2])
-    packed = (codes << (2 * np.arange(4))).sum(-1).astype(np.uint8)
-    means = rng.normal(90, 10, ne)
-    scaled = rng.normal(0, 1, ne).astype(np.float32)
-    mu = rng.normal(0, 1, nk).astype(np.float32)
-    inv = np.full(nk, 7.0, np.float32)
-    lpc = np.full(nk, 0.9, np.float32)
-    q2r = np.where(rng.random(nk) < 0.1, -1, np.arange(nk)).astype(np.int64)
-    rr = rng.integers(0, 4 ** 9, nk - 8).astype(np.int64)
-    for col in range(B):
-        args = (packed, col, ne - 1 - col, nk, means, scaled, mu, inv, lpc,
-                q2r, rr)
-        a, b = jn.decode_moves(*args), tn.decode_moves(*args)
-        for x, y in zip(a, b):
-            if isinstance(x, np.ndarray):
-                np.testing.assert_array_equal(x, y)
-            else:
-                assert x == y
 
 
 # ---------------------------------------------------------------------------
@@ -283,26 +247,37 @@ def _bits(x) -> bytes:
     return np.float64(x).tobytes()
 
 
-@pytest.mark.parametrize("reads", ["golden", "simulated", "odd_bases"])
+@pytest.mark.parametrize("reads", ["golden", "simulated", "odd_bases",
+                                   "event_counts"])
 def test_prep_scale_batch_matches_jax(dataset, models, port_models, reads):
     """The scaling call over a batch against the JAX package's
     ``kmer_ranks`` of the basecall and the reference and
     ``estimate_scaling_quantiles``, read by read: ranks, the too-few verdict
     and the bits of shift and scale.  The golden reads; simulated reads of
     both strands; reads with N and lowercase bases, one shorter than a
-    k-mer and one with 6 events (fewer than the ten quantiles)."""
+    k-mer and one with 6 events (fewer than the ten quantiles); and 50, 997
+    and 4000 random event means, each read with 13 more reference k-mers
+    (bins of the ten quantiles that do not divide the counts)."""
     from dnascent_tpu_torch import native as tn
     ed = DNA_R10.events
+    counts = (50, 997, 4000)
     if reads == "golden":
         records = _golden_records(dataset)
     elif reads == "simulated":
         records = (_sim_records(port_models, 3, 2500, 70)
                    + _sim_records(port_models, 3, 2500, 80, reverse=True))
+    elif reads == "event_counts":
+        records = [_sim_records(port_models, 1, n + 13 + DNA_R10.kmer_len - 1,
+                                90 + i)[0] for i, n in enumerate(counts)]
     else:
         records = _odd_base_records(port_models)
-    means = [tn.event_detect(r.raw, ed.window_length1, ed.window_length2,
-                             ed.threshold1, ed.threshold2, ed.peak_height)[0]
-             for r in records]
+    if reads == "event_counts":
+        rng = np.random.default_rng(5)
+        means = [rng.normal(90, 16, n) for n in counts]
+    else:
+        means = [tn.event_detect(r.raw, ed.window_length1, ed.window_length2,
+                                 ed.threshold1, ed.threshold2,
+                                 ed.peak_height)[0] for r in records]
     if reads == "odd_bases":
         means[2] = means[2][:6]
     qs = [r.basecall for r in records]
@@ -325,6 +300,9 @@ def test_prep_scale_batch_matches_jax(dataset, models, port_models, reads):
     if reads == "odd_bases":
         assert {("few", True), ("undefined", True), ("short", True)} <= seen
         assert any(c.islower() for c in "".join(qs + rs))
+    if reads == "event_counts":
+        assert [len(r) - DNA_R10.kmer_len + 1 for r in rs] == [
+            n + 13 for n in counts]
 
 
 def test_prep_scale_batch_summation_order(models, port_models):
@@ -373,7 +351,7 @@ def test_prep_scale_batch_summation_order(models, port_models):
 
 
 @pytest.fixture(scope="module", params=["golden", "painted", "passthrough",
-                                        "fit_stdv"])
+                                        "theilsen_sizes", "fit_stdv"])
 def prep_case(request, dataset, port_models):
     """(case, records, port models, JAX models, cfg, the JAX package's
     cfg) of a prep run: the golden reads; painted reads whose signal is
@@ -382,8 +360,12 @@ def prep_case(request, dataset, port_models):
     the reads that pass come in fill-group order otherwise than in the
     batch; simulated reads of 900 and 1500 bp under a minimum of 100
     cleaned events, so the short ones pass with fewer
-    cleaned events than Theil-Sen's 1000 points (passthrough); and
-    simulated reads against a per-k-mer-stdv table (kernel E)."""
+    cleaned events than Theil-Sen's 1000 points (passthrough); simulated
+    reads of 60, 158, 1008 and 2608 bp under no minimum, whose cleaned
+    events number about their k-mers (52, 150, 1000, 2600), so that the
+    stride subsample takes no points, all but the trimmed ends, a stride
+    of 1 and a stride of 2; and simulated reads against a per-k-mer-stdv
+    table (kernel E)."""
     from dnascent_tpu.io.poremodel import synthetic_model_set as jax_set
     from dnascent_tpu_torch.testing.painted import (
         edu_model, labels_from_tracks, painted_read)
@@ -407,6 +389,11 @@ def prep_case(request, dataset, port_models):
                    + _sim_records(pms, 1, 1500, 95, reverse=True))
         cfg, jcfg = (dataclasses.replace(c, banded=dataclasses.replace(
             c.banded, min_cleaned_events=100)) for c in (cfg, jcfg))
+    elif case == "theilsen_sizes":
+        records = [_sim_records(pms, 1, n, 120 + i, reverse=bool(i % 2))[0]
+                   for i, n in enumerate((60, 158, 1008, 2608))]
+        cfg, jcfg = (dataclasses.replace(c, banded=dataclasses.replace(
+            c.banded, min_cleaned_events=0)) for c in (cfg, jcfg))
     else:
         records = _sim_records(pms, 2, 1200, 99)
         pms = dataclasses.replace(pms, pore_model=pms.unlabelled_model)
@@ -456,8 +443,9 @@ def test_prep_decode_group_matches_jax(prep_case):
 
     case, records, pms, jmodels, cfg, _ = prep_case
     _, calls, _ = _prep(records, pms, cfg)
-    assert len(calls) == (2 if case == "painted" else 1)
-    seen = dict(passed=0, failed=0, passth=0)
+    assert len(calls) == (2 if case in ("painted", "theilsen_sizes") else 1)
+    seen = dict(passed=0, failed=0, passth=0, strides=set())
+    mp, trim = cfg.scaling.theilsen_max_points, cfg.scaling.theilsen_trim
     for a, kw, (pairs, offs, ok) in calls:
         arg = inspect.signature(tn.prep_decode_group).bind(*a, **kw).arguments
         o = arg["offsets"]
@@ -484,19 +472,80 @@ def test_prep_decode_group_matches_jax(prep_case):
                 seen["failed"] += 1
                 continue
             sig, y, npts, passth = jscaling.theilsen_pregather(
-                cs, cr, jmodels.pore_model, cfg.scaling.theilsen_max_points,
-                cfg.scaling.theilsen_trim)
+                cs, cr, jmodels.pore_model, mp, trim)
             assert arg["sig"][b].tobytes() == sig.tobytes()
             assert arg["mms"][b].tobytes() == y.tobytes()
             assert (arg["npts"][b], bool(arg["passth"][b])) == (
                 npts, passth)
             seen["passed"] += 1
             seen["passth"] += int(passth)
+            # the subsample's stride (0: no points), idx = trim + skip*j
+            stride = max(1, (cs.shape[0] - 2 * trim) // mp) if npts else 0
+            seen["strides"].add((stride, passth))
     assert seen["passed"]
     if case == "painted":
         assert seen["failed"] >= 2
     if case == "passthrough":
         assert seen["passth"] >= 2
+    if case == "theilsen_sizes":
+        assert seen["strides"] == {(0, True), (1, True), (1, False),
+                                   (2, False)}
+
+
+@pytest.mark.parametrize("nk", [700, 500])
+def test_prep_decode_group_synthetic_moves_match_jax(nk):
+    """Random packed moves with PAD gaps, as the chase emits them, through
+    the decode call, each column against the JAX package's per-read
+    ``decode_moves``: pairs, verdict and the Theil-Sen row of its cleaned
+    signals, bit for bit.  About one query k-mer in ten has no reference
+    position and the reference ranks are random; under loose QC limits the
+    walks over 700 k-mers stop short of the first (not spanned, failed)
+    and those over 500 reach it (passed)."""
+    from dnascent_tpu import native as jn
+    from dnascent_tpu.ops import scaling as jscaling
+    from dnascent_tpu_torch import native as tn
+    rng = np.random.default_rng(7)
+    rows, B, ne = 300, 3, 900
+    codes = rng.choice(4, (rows, B, 4), p=[0.4, 0.25, 0.15, 0.2])
+    packed = (codes << (2 * np.arange(4))).sum(-1).astype(np.uint8)
+    means = rng.normal(90, 10, ne)
+    scaled = rng.normal(0, 1, ne).astype(np.float32)
+    n_model = 4 ** 9
+    mu = rng.normal(0, 1, n_model).astype(np.float32)
+    inv = np.full(n_model, 7.0, np.float32)
+    lpc = np.full(n_model, 0.9, np.float32)
+    q2r = np.where(rng.random(nk) < 0.1, -1, np.arange(nk)).astype(np.int64)
+    rr = rng.integers(0, n_model, nk - 8).astype(np.int64)
+    best_e = np.array([ne - 1 - col for col in range(B)], np.int32)
+    # read b's events, query ranks (rank j at k-mer j, so the tables give
+    # mu[j]), reference ranks and query_to_ref, concatenated
+    offsets = np.array([[b * ne, b * nk, b * (nk - 8), b * nk]
+                        for b in range(B + 1)], np.int64)
+    mp, trim = 100, 10
+    sig = np.zeros((B, mp), np.float32)
+    mms = np.zeros((B, mp), np.float32)
+    npts = np.zeros(B, np.int32)
+    passth = np.zeros(B, np.uint8)
+    pairs, offs, ok = tn.prep_decode_group(
+        packed, best_e, offsets, np.tile(means, B),
+        np.tile(np.arange(nk), B), np.tile(rr, B), np.tile(q2r, B),
+        np.tile(scaled, (B, 1)), (mu, inv, lpc), -1e9, 10 ** 6, 0, mp, trim,
+        sig, mms, npts, passth)
+    pore_model = mu[:, None].astype(np.float64)  # the mean column
+    for col in range(B):
+        jp, cs, cr, _, spanned, _ = jn.decode_moves(
+            packed, col, int(best_e[col]), nk, means, scaled, mu[:nk],
+            inv[:nk], lpc[:nk], q2r, rr)
+        np.testing.assert_array_equal(pairs[offs[col] : offs[col + 1]], jp)
+        assert bool(ok[col]) == spanned == (nk == 500), col
+        if not spanned:
+            assert not sig[col].any() and not mms[col].any()
+            continue
+        assert (cs.shape[0] - 2 * trim) // mp >= 2
+        want = jscaling.theilsen_pregather(cs, cr, pore_model, mp, trim)
+        assert sig[col].tobytes() == want[0].tobytes()
+        assert mms[col].tobytes() == want[1].tobytes()
+        assert (npts[col], bool(passth[col])) == want[2:]
 
 
 def test_prepare_reads_matches_jax_host_steps(prep_case):
@@ -571,7 +620,7 @@ def test_prepare_reads_matches_jax_host_steps(prep_case):
             cs, cr, jmodels.pore_model, jcfg.scaling.theilsen_max_points,
             jcfg.scaling.theilsen_trim)))
     assert ts
-    B = devmod.pad_rows(len(ts))
+    B = len(ts)
     mp = jcfg.scaling.theilsen_max_points
     sig = np.zeros((B, mp), np.float32)
     mms = np.zeros((B, mp), np.float32)
@@ -629,7 +678,7 @@ def test_fill_rows_match_jax_emission_coefficients(models, port_models):
     assert len(prepped) == 6
     raw = np.concatenate([p.kmer_ranks_query for p in prepped])
     assert (raw < 0).any()
-    B = tprep.devmod.pad_rows(len(prepped))
+    B = len(prepped)
     E = max(p.n_events for p in prepped)
     K = max(p.n_kmers for p in prepped)
     ranks = np.full((B, K), -1, np.int64)

@@ -1,6 +1,6 @@
 """PyTorch port: it imports and runs without jax and without the JAX
 package ``dnascent_tpu`` (its writers, dataset builder, signal QC, error
-taxonomy, CPU baseline, benchmark, graft entry points and painted reads
+taxonomy, CPU baseline, graft entry points and painted reads
 included), and its CLI takes every flag of the JAX CLI (the multi-device
 and multi-process ones included), while it ignores ``--HMM`` on align and
 trainCNN, as the JAX CLI does."""
@@ -102,7 +102,6 @@ assert signal_qc.trim_and_segment_raw(rec.raw)[0] >= 200
 lab = painted.labels_from_tracks(1200, [("BrdU", 200, 500)])
 pr = painted.painted_read(pms, painted.edu_model(pms), 1200, lab, 5, "p")
 assert pr.raw.shape[0] > 1200 and pr.basecall == pr.reference_seq
-import bench_torch
 from dnascent_tpu_torch import graft_entry
 fn, args = graft_entry.entry(device="cpu")
 assert fn(*args).shape == (4, 512, 3)
@@ -121,9 +120,9 @@ def test_port_imports_and_runs_without_jax():
 
 
 def _port_sources():
-    """Every .py of the port (graft_entry.py included), chip_smoke.py,
-    bench_torch.py and the port's bench scripts."""
-    out = [os.path.join(ROOT, f) for f in ("chip_smoke.py", "bench_torch.py")]
+    """Every .py of the port (graft_entry.py included), chip_smoke.py and
+    the port's bench scripts."""
+    out = [os.path.join(ROOT, "chip_smoke.py")]
     out += [os.path.join(ROOT, "scripts", f)
             for f in ("bench_banded_cuda.py", "bench_viterbi_gru_cuda.py",
                       "profile_backtrace_cuda.py", "bench_pod5_lookup.py")]

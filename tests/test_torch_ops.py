@@ -61,24 +61,11 @@ def test_theilsen_matches_jax():
     assert ours[0][2] == args[4][2] and ours[1][2] == args[5][2]
 
 
-def test_theilsen_pregather_matches_jax(models):
-    rng = np.random.default_rng(4)
-    for n in (0, 150, 1000, 2600):
-        cs = rng.normal(90, 10, n)
-        cr = rng.integers(-1, 4 ** 9, n)
-        ours = tscaling.theilsen_pregather(cs, cr, models.pore_model, 1000, 50)
-        theirs = jscaling.theilsen_pregather(cs, cr, models.pore_model, 1000,
-                                             50)
-        for o, t in zip(ours, theirs):
-            np.testing.assert_array_equal(o, t)
-
-
 def test_device_placement_is_explicit():
     x = np.arange(6, dtype=np.int32).reshape(2, 3)
     t = devmod.put_rows(x, "cpu")
     assert t.device.type == "cpu" and t.dtype == torch.int32
     np.testing.assert_array_equal(t.numpy(), x)
-    assert devmod.pad_rows(5) == 5 and devmod.pad_rows(0) == 1
     with pytest.raises(ValueError):
         devmod.resolve("meta")
     if not torch.cuda.is_available():
